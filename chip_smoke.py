@@ -9,22 +9,42 @@ Run from a checkout: it builds the CUDA kernels from
 1. prints the card's name and power limit (``nvidia-smi``) and the
    build time;
 2. holds kernel B1 (hop block) against its plain PyTorch version on the
-   card over both parities, axpy on/off, gc 18/12/8, nrhs 1/4, f32/f64,
+   card over both parities, axpy on/off, gc 18/12/8, nrhs 1/4/12 (12 is
+   the slice-2 path's block, three RHS blocks of 4), f32/f64,
    on (3,5,3,6), wilson-16x16x16x16 and wilson-64x16x16x8
    (tolerance: f32 5e-5, f64 1e-10 absolute, the reference's parity
    tolerances);
 3. holds kernel B2 (fused Dhat) against its plain version and against
    the two-launch B1 Dhat over the same grid;
-4. drives the main path, ``repro_torch.launch.solve.main`` with cgnr,
+4. holds kernel B3 (the streaming fused Dhat over a ring of t-rows)
+   against its plain version, which walks the same schedule, and against
+   B2 over f32/f64, gc 18/12/8, nrhs 1/4/12, tz_offset (0,0)/(1,0) on
+   the same three shapes, plus one window=5 case;
+5. drives the main path, ``repro_torch.launch.solve.main`` with cgnr,
    tol 1e-6 and backend auto (which must resolve to cuda_fused), at
    wilson-16x16x16x16 and wilson-64x16x16x8, with the launch counters
-   set to 0 just before each run; checks the full-lattice residual,
-   then solves once more with the torch_ref backend on the card;
-5. times each kernel at the main path's shapes with CUDA events (median
+   set to 0 just before each run; checks the full-lattice residual and
+   that every Dhat went through the kernel measured faster there (B2 at
+   16^4, B3 at wilson-64x16x16x8, whose links well exceed the L2; written
+   out in ``MAIN_LATTICES``, not asked of the rule under test), then
+   solves once more with the torch_ref backend on the card;
+6. drives the multi-RHS path: one 12-source propagator per solve at
+   wilson-16x16x16x16 with ``--nrhs 12 --backend cuda_fused_stream``,
+   counters set to 0 just before; checks every column's full-lattice
+   residual and that every Dhat was a B3 launch; then the same solve with
+   ``--backend auto``;
+7. times the unbatched solve against the batched pipeline with a block
+   of one source at wilson-16x16x16x16 (the candidate removal of the
+   unbatched solvers);
+8. times each kernel at the main paths' shapes with CUDA events (median
    of 100 launches after a warm-up, device time) beside its bound, its
    wall time per call with host work, and its plain version's; then
-   times B2 against the two-launch B1 Dhat at wilson-64x32x32x16, where
-   the odd intermediate (100 MB in f32) no longer fits the 50 MB L2.
+   times B3 against B2 at the points that set the ``auto`` rule
+   (``POLICY_POINTS``: wilson-16x16x16x16 with nrhs 1 and 12;
+   wilson-64x16x16x8 and wilson-64x32x32x16 with nrhs 1, 2, 4 and 12,
+   and with one source in f64 and f32 with each link form), and the
+   two-launch B1 Dhat at wilson-64x32x32x16, where the odd intermediate
+   (100 MB in f32) no longer fits the 50 MB L2.
 
 It exits non-zero at the first failed phase.  The line before the last
 is a JSON object ``{"kernels": [...]}``; the last line is
@@ -51,9 +71,25 @@ CHECK_SHAPES = {               # (T, Z, Y, X) full lattice
     "wilson-16x16x16x16": (16, 16, 16, 16),
     "wilson-64x16x16x8": (16, 16, 16, 64),
 }
-MAIN_LATTICES = (("wilson-16x16x16x16", 2), ("wilson-64x16x16x8", 1))
+# (lattice, solves, the Dhat kernel auto must launch there): B2 measured
+# faster at 16^4, B3 at wilson-64x16x16x8 with one source (PERF.md 6).
+MAIN_LATTICES = (("wilson-16x16x16x16", 2, "dhat_planar_fused"),
+                 ("wilson-64x16x16x8", 1, "dhat_planar_fused_stream"))
+# The multi-RHS path: one point-source propagator (4 spins x 3 colours).
+PROPAGATOR = ("wilson-16x16x16x16", 12, 2)     # lattice, nrhs, solves
 # The largest lattice of the configs, where B2's scratch overflows the L2.
 BIG_LATTICE = ("wilson-64x32x32x16", (32, 32, 32, 64))
+# (lattice, nrhs, dtype, gc) where B3 is timed against B2: the points
+# that set the auto policy's rule (kernels/ops.py), on both sides of it.
+POLICY_POINTS = tuple(
+    [("wilson-16x16x16x16", n, "f32", 18) for n in (1, 12)]
+    + [(lattice, n, "f32", 18) for lattice in ("wilson-64x16x16x8",
+                                               BIG_LATTICE[0])
+       for n in (1, 2, 4, 12)]
+    + [(lattice, 1, dtype, gc) for lattice in ("wilson-64x16x16x8",
+                                               BIG_LATTICE[0])
+       for dtype in ("f32", "f64") for gc in (18, 12, 8)
+       if (dtype, gc) != ("f32", 18)])
 # Published H100 SXM peaks (NVIDIA data sheet, dense, no tensor cores, at
 # the full 700 W power limit): the bound of every kernel is taken at them.
 PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
@@ -101,7 +137,8 @@ def ptxas_summary(log):
     out, current, spill = [], None, "0"
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?(hop_kernel|"
-                      r"dhat_fused_kernel)I([fd])Li(\d+)ELi(\d+)E", line)
+                      r"dhat_fused_kernel|dhat_stream_kernel)I([fd])Li(\d+)"
+                      r"ELi(\d+)E", line)
         if m:
             current = (f"{m.group(1)}<{names[m.group(2)]}, gc={m.group(3)},"
                        f" nb={m.group(4)}>")
@@ -140,7 +177,7 @@ def phase_b1(device):
         for dtype in ("f32", "f64"):
             gauges, spinor = fields(shape, dtype, device, seed=11)
             for gc, (u_e, u_o) in gauges.items():
-                for nrhs in (1, 4):
+                for nrhs in (1, 4, 12):
                     src = spinor(nrhs)
                     psi0 = spinor(nrhs)
                     for parity in (0, 1):
@@ -177,7 +214,7 @@ def phase_b2(device):
         for dtype in ("f32", "f64"):
             gauges, spinor = fields(shape, dtype, device, seed=12)
             for gc, (u_e, u_o) in gauges.items():
-                for nrhs in (1, 4):
+                for nrhs in (1, 4, 12):
                     psi = spinor(nrhs)
                     got = ws.dhat_planar_fused(u_e, u_o, psi, KAPPA)
                     want = ref.dhat_planar_ref(u_e, u_o, psi, KAPPA)
@@ -198,13 +235,62 @@ def phase_b2(device):
     return worst
 
 
+def phase_b3(device):
+    import torch
+
+    from repro_torch.kernels import ref, wilson_stencil as ws
+    worst = {"f32": 0.0, "f64": 0.0}
+    cases = 0
+    for sname, shape in CHECK_SHAPES.items():
+        for dtype in ("f32", "f64"):
+            gauges, spinor = fields(shape, dtype, device, seed=15)
+            for gc, (u_e, u_o) in gauges.items():
+                for nrhs in (1, 4, 12):
+                    psi = spinor(nrhs)
+                    for tz in ((0, 0), (1, 0)):
+                        got = ws.dhat_planar_fused_stream(
+                            u_e, u_o, psi, KAPPA, tz_offset=tz)
+                        want = ref.dhat_planar_stream_ref(
+                            u_e, u_o, psi, KAPPA, tz_offset=tz)
+                        b2 = ws.dhat_planar_fused(u_e, u_o, psi, KAPPA,
+                                                  tz_offset=tz)
+                        torch.cuda.synchronize()
+                        err = float((got - want).abs().max())
+                        err2 = float((got - b2).abs().max())
+                        worst[dtype] = max(worst[dtype], err, err2)
+                        cases += 1
+                        check(max(err, err2) <= ATOL[dtype],
+                              f"B3 {sname} {dtype} gc={gc} nrhs={nrhs} "
+                              f"tz_offset={tz}: max abs err vs plain "
+                              f"{err:.3e}, vs B2 {err2:.3e} > "
+                              f"{ATOL[dtype]:g}")
+            print(f"B3 vs plain and vs B2: {sname} {dtype}: ok (worst so "
+                  f"far {worst[dtype]:.3e})", flush=True)
+    # One wider ring: the slots rotate differently, the result must not.
+    gauges, spinor = fields(CHECK_SHAPES["wilson-16x16x16x16"], "f32",
+                            device, seed=16)
+    u_e, u_o = gauges[18]
+    psi = spinor(4)
+    got = ws.dhat_planar_fused_stream(u_e, u_o, psi, KAPPA, window=5)
+    want = ref.dhat_planar_stream_ref(u_e, u_o, psi, KAPPA, window=5)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    worst["f32"] = max(worst["f32"], err)
+    cases += 1
+    check(err <= ATOL["f32"], f"B3 window=5: max abs err {err:.3e}")
+    print(f"B3: {cases} cases (window=5 included), max abs err f32 "
+          f"{worst['f32']:.3e} (atol 5e-5), f64 {worst['f64']:.3e} (atol "
+          "1e-10)")
+    return worst
+
+
 def phase_slice():
     import torch
 
     from repro_torch.kernels import wilson_stencil as ws
     from repro_torch.launch import solve as launch_solve
     runs = {}
-    for lattice, n_solves in MAIN_LATTICES:
+    for lattice, n_solves, kernel in MAIN_LATTICES:
         argv = ["--lattice", lattice, "--method", "cgnr", "--tol", "1e-6",
                 "--backend", "auto", "--n-solves", str(n_solves),
                 "--seed", "1", "--device", "cuda"]
@@ -223,9 +309,9 @@ def phase_slice():
         check(launches["hop_block_planar"] == 2 * n_solves,
               f"{lattice}: B1 launched {launches['hop_block_planar']} "
               f"times, expected {2 * n_solves}")
-        check(launches["dhat_planar_fused"] >= 2 * sum(out["iterations"]),
-              f"{lattice}: B2 launched {launches['dhat_planar_fused']} "
-              f"times for {sum(out['iterations'])} cgnr iterations")
+        check(launches[kernel] >= 2 * sum(out["iterations"]),
+              f"{lattice}: {kernel} launched {launches[kernel]} times for "
+              f"{sum(out['iterations'])} cgnr iterations")
         runs[lattice] = dict(out, launches=launches)
     lattice = MAIN_LATTICES[0][0]
     ref_out = launch_solve.main(
@@ -241,6 +327,100 @@ def phase_slice():
     check(ref_out["residuals"][0] <= 1e-5,
           f"torch_ref residual {ref_out['residuals'][0]:.3e} > 1e-5")
     return runs
+
+
+def phase_slice2():
+    import torch
+
+    from repro_torch.kernels import wilson_stencil as ws
+    from repro_torch.launch import solve as launch_solve
+    lattice, nrhs, n_solves = PROPAGATOR
+    runs = {}
+    for backend in ("cuda_fused_stream", "auto"):
+        argv = ["--lattice", lattice, "--nrhs", str(nrhs), "--method",
+                "cgnr", "--tol", "1e-6", "--backend", backend,
+                "--n-solves", str(n_solves), "--seed", "1", "--device",
+                "cuda"]
+        print(f"slice2: python -m repro_torch.launch.solve "
+              f"{' '.join(argv)}", flush=True)
+        ws.reset_launch_counts()
+        out = launch_solve.main(argv)
+        torch.cuda.synchronize()
+        launches = dict(ws.LAUNCHES)
+        print(f"slice2: {backend}: launches {launches}", flush=True)
+        for i, rels in enumerate(out["col_residuals"]):
+            check(len(rels) == nrhs and max(rels) <= 1e-5,
+                  f"{backend} solve {i}: column full-lattice residuals "
+                  f"{rels} (need {nrhs}, each <= 1e-5)")
+        runs[backend] = dict(out, launches=launches)
+    stream = runs["cuda_fused_stream"]
+    iters = sum(stream["iterations"])
+    check(stream["launches"]["dhat_planar_fused_stream"] >= 2 * iters,
+          f"B3 launched {stream['launches']['dhat_planar_fused_stream']} "
+          f"times for {iters} cgnr iterations")
+    check(stream["launches"]["dhat_planar_fused"] == 0,
+          f"B2 launched {stream['launches']['dhat_planar_fused']} times "
+          "on the cuda_fused_stream path")
+    auto = runs["auto"]
+    check(auto["backend"] == "cuda_fused",
+          f"auto resolved to {auto['backend']!r}, not 'cuda_fused'")
+    diff = max(float((a - b).abs().max()) for a, b in
+               zip(stream["solutions"], auto["solutions"]))
+    print(f"slice2: auto resolved to {auto['backend']}; iterations per "
+          f"column cuda_fused_stream {stream['col_iterations']} vs auto "
+          f"{auto['col_iterations']}; max |xi_stream - xi_auto| = "
+          f"{diff:.3e}", flush=True)
+    return runs
+
+
+def phase_block_of_one(device, shape=None, n_solves=6):
+    """The unbatched solve against the batched pipeline given the same
+    source as a block of one (``solve_block``), on one session at the
+    main lattice (cuda_fused, cgnr, tol 1e-6), in alternating order:
+    steady wall times (median after the first solve of each), iterations
+    and the largest difference of the solutions.  Timing only; it
+    measures whether the unbatched solvers can go."""
+    import torch
+
+    from repro_torch import api
+    from repro_torch.core import evenodd, su3
+    shape = CHECK_SHAPES[MAIN_LATTICES[0][0]] if shape is None else shape
+    gen = torch.Generator().manual_seed(1)
+    U = su3.random_gauge(gen, shape, device=device)
+    matrix = api.WilsonMatrix.bind(*evenodd.pack_gauge(U), KAPPA,
+                                   backend="cuda_fused")
+    session = api.SolveSession(matrix,
+                               api.SolveSpec(method="cgnr", tol=1e-6))
+    eta = torch.complex(torch.randn(shape + (4, 3), generator=gen),
+                        torch.randn(shape + (4, 3), generator=gen))
+    ee, eo = evenodd.pack(eta.to(device))
+    runs = {"unbatched": lambda: session.solve(ee, eo),
+            "block of one": lambda: session.solve_block(ee, eo)}
+    times = {k: [] for k in runs}
+    out = {}
+    for _ in range(n_solves):
+        for label, fn in runs.items():
+            t0 = time.perf_counter()
+            out[label] = fn()
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            times[label].append(time.perf_counter() - t0)
+    steady = {k: statistics.median(t[1:]) for k, t in times.items()}
+    iters = {"unbatched": int(out["unbatched"][2].iterations),
+             "block of one": int(out["block of one"][2].iterations[0])}
+    diff = float((out["unbatched"][0] - out["block of one"][0][0])
+                 .abs().max())
+    print(f"block of one: {shape} cgnr tol 1e-6 cuda_fused, steady solve "
+          f"unbatched {steady['unbatched'] * 1e3:.2f} ms, block of one "
+          f"{steady['block of one'] * 1e3:.2f} ms ({n_solves} solves "
+          f"each, alternating); iterations {iters}; max |xi_unbatched - "
+          f"xi_block| = {diff:.3e}", flush=True)
+    # The tolerance of the CPU tests' batched-against-unbatched solves.
+    check(diff <= 1e-4 and
+          abs(iters["unbatched"] - iters["block of one"]) <= 2,
+          f"block of one disagrees with the unbatched solve: {diff:.3e}, "
+          f"iterations {iters}")
+    return steady
 
 
 def _events(n):
@@ -296,12 +476,14 @@ def copy_bandwidth(device):
     return 2 * 4 * n / (ms * 1e-3)
 
 
-def phase_times(device):
+def phase_times(device, paths):
+    """Kernel times; ``paths`` maps ``(lattice, nrhs, dtype, gc)`` to the
+    kernel launches of the main paths driven at that shape."""
     import torch
 
     from repro_torch.kernels import ops, ref, wilson_stencil as ws
     rows = {}
-    for lattice, _ in MAIN_LATTICES:
+    for lattice, _, _ in MAIN_LATTICES:
         T, Z, Y, X = CHECK_SHAPES[lattice]
         gauges, spinor = fields((T, Z, Y, X), "f32", device, seed=13)
         u_e, u_o = gauges[18]
@@ -345,26 +527,82 @@ def phase_times(device):
         print(f"time: {lattice} two-launch B1 Dhat (unfused policy): "
               f"device {unfused * 1e3:.1f} us", flush=True)
 
-    # B2 against the two-launch Dhat past the L2: the auto policy's rule.
-    lattice, shape = BIG_LATTICE
-    gauges, spinor = fields(shape, "f32", device, seed=14)
-    u_e, u_o = gauges[18]
-    del gauges
-    psi = spinor(1)
-    fused = lambda: ws.dhat_planar_fused(u_e, u_o, psi, KAPPA)  # noqa: E731
-    two = lambda: ops.apply_dhat_planar(u_e, u_o, psi, KAPPA)   # noqa: E731
-    err = float((fused() - two()).abs().max())
-    check(err <= ATOL["f32"], f"B2 vs two B1 at {lattice}: max abs err "
-                              f"{err:.3e} > {ATOL['f32']:g}")
-    order = (("B2", fused), ("two-launch", two), ("two-launch", two),
-             ("B2", fused))
-    times = [(label, device_ms(fn, 50)) for label, fn in order]
-    print(f"time: {lattice} f32 gc=18 nrhs=1 Dhat, device us in run order "
-          + ", ".join(f"{label} {t * 1e3:.1f}" for label, t in times)
-          + f"; B2 vs two-launch max abs err {err:.3e}", flush=True)
-    rows[(lattice, "policy")] = times
-    del u_e, u_o, psi
-    torch.cuda.empty_cache()
+    # B3 against B2 (and, past the L2, the two-launch Dhat): the numbers
+    # that set the auto policy's rule.  Run order alternates, so drift
+    # during the run shows as a difference between the two readings.
+    for lattice, nrhs, dtype, gc in POLICY_POINTS:
+        shape = (BIG_LATTICE[1] if lattice == BIG_LATTICE[0]
+                 else CHECK_SHAPES[lattice])
+        T, Z, Y, X = shape
+        itemsize = 4 if dtype == "f32" else 8
+        gauges, spinor = fields(shape, dtype, device, seed=14)
+        u_e, u_o = gauges[gc]
+        del gauges
+        psi = spinor(nrhs)
+        cands = {
+            "B2": lambda: ws.dhat_planar_fused(u_e, u_o, psi, KAPPA),
+            "B3": lambda: ws.dhat_planar_fused_stream(u_e, u_o, psi,
+                                                      KAPPA),
+        }
+        order = ["B2", "B3", "B3", "B2"]
+        if lattice == BIG_LATTICE[0] and (nrhs, dtype, gc) == (1, "f32", 18):
+            cands["two-launch"] = lambda: ops.apply_dhat_planar(
+                u_e, u_o, psi, KAPPA)
+            order = ["B2", "B3", "two-launch", "two-launch", "B3", "B2"]
+        ref_out = cands["B2"]()
+        errs = {k: float((f() - ref_out).abs().max())
+                for k, f in cands.items() if k != "B2"}
+        for k, err in errs.items():
+            check(err <= ATOL[dtype], f"{k} vs B2 at {lattice} nrhs={nrhs} "
+                                      f"{dtype} gc={gc}: max abs err "
+                                      f"{err:.3e}")
+        times = [(label, device_ms(cands[label], 50)) for label in order]
+        m = ws.hop_traffic_model(T, Z, Y, X // 2, nrhs=nrhs,
+                                 itemsize=itemsize, gauge_comps=gc)
+        # Dhat, however implemented, must move psi_e in, the result out
+        # and both gauge parities once: B2's bound is B3's too.
+        nbytes = 2 * m["bytes_spinor"] + m["bytes_gauge"]
+        flops = 2 * m["flops"] + 2 * 24 * T * Z * Y * (X // 2) * nrhs
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        bound = max(t_bytes, t_ops)
+        model = ws.dhat_stream_traffic_model(T, Z, Y, X // 2, nrhs=nrhs,
+                                             itemsize=itemsize,
+                                             gauge_comps=gc)
+        wall = {k: call_ms(cands[k], 20) for k in ("B2", "B3")}
+        plain = {
+            "B2": call_ms(lambda: ref.dhat_planar_ref(u_e, u_o, psi,
+                                                      KAPPA), 3, warmup=1),
+            "B3": call_ms(lambda: ref.dhat_planar_stream_ref(
+                u_e, u_o, psi, KAPPA), 3, warmup=1)}
+        scratch = itemsize * psi.numel()
+        launched = paths.get((lattice, nrhs, dtype, gc), {})
+        print(f"time: {lattice} {dtype} gc={gc} nrhs={nrhs} Dhat (auto "
+              f"takes {ops.auto_policy(psi.shape, itemsize, gc)}; B2 scratch "
+              f"{scratch / 1e6:.1f} MB, B3 ring "
+              f"{model['vmem_ring_bytes'] / 1e6:.2f} MB), device us in run "
+              f"order " + ", ".join(f"{k} {t * 1e3:.1f}" for k, t in times)
+              + f"; bound {bound * 1e3:.1f} us ({nbytes} B at 3.35 TB/s, "
+              f"{'bytes' if t_bytes >= t_ops else 'operations'}); "
+              f"dhat_stream_traffic_model {model['bytes_total']} B "
+              f"(printed, not the bound); wall per call B2 "
+              f"{wall['B2'] * 1e3:.1f} us, B3 {wall['B3'] * 1e3:.1f} us; "
+              f"plain B2 {plain['B2'] * 1e3:.1f} us, B3 "
+              f"{plain['B3'] * 1e3:.1f} us; max abs err vs B2 "
+              + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+              + f"; launches on the paths driven at this shape: B2 "
+              f"{launched.get('dhat_planar_fused', 0)}, B3 "
+              f"{launched.get('dhat_planar_fused_stream', 0)}",
+              flush=True)
+        med = {k: statistics.median(t for label, t in times if label == k)
+               for k in cands}
+        rows[(lattice, nrhs, dtype, gc)] = {
+            "times": times, "ms": med, "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "call_ms": wall, "plain_ms": plain,
+            "model_bytes": model["bytes_total"], "bytes": nbytes}
+        del u_e, u_o, psi, ref_out, cands
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -395,13 +633,23 @@ def main():
     t_start = time.time()
     phase_build()
     worst = {"hop_block_planar": phase_b1(device),
-             "dhat_planar_fused": phase_b2(device)}
+             "dhat_planar_fused": phase_b2(device),
+             "dhat_planar_fused_stream": phase_b3(device)}
     runs = phase_slice()
+    runs2 = phase_slice2()
+    phase_block_of_one(device)
     copy_bps = copy_bandwidth(device)
     print(f"copy bandwidth: {copy_bps / 1e9:.0f} GB/s (device-to-device"
           f" copy, read + write; the bounds use the 3.35 TB/s peak)",
           flush=True)
-    rows = phase_times(device)
+    # Every driven path runs f32 with full links.
+    paths = {(lattice, 1, "f32", 18): run["launches"]
+             for lattice, run in runs.items()}
+    lattice, nrhs, _ = PROPAGATOR
+    paths[(lattice, nrhs, "f32", 18)] = {
+        k: sum(run["launches"][k] for run in runs2.values())
+        for k in runs2["auto"]["launches"]}
+    rows = phase_times(device, paths)
 
     main_lattice = MAIN_LATTICES[0][0]
     sources = {
@@ -424,7 +672,22 @@ def main():
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
             "copy_bytes_per_s": copy_bps,
-            "lattice": main_lattice, "dtype": "f32"})
+            "lattice": main_lattice, "nrhs": 1, "dtype": "f32"})
+    lattice, nrhs, _ = PROPAGATOR
+    row = rows[(lattice, nrhs, "f32", 18)]
+    name = "dhat_planar_fused_stream"
+    kernels.append({
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wilson_dhat_stream.cu",
+        "replaces": "src/repro/kernels/wilson_stencil.py:992",
+        "launches": runs2["cuda_fused_stream"]["launches"][name],
+        "max_abs_err": worst[name]["f32"],
+        "max_abs_err_f64": worst[name]["f64"],
+        "ms": row["ms"]["B3"], "call_ms": row["call_ms"]["B3"],
+        "plain_ms": row["plain_ms"]["B3"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": None,
+        "copy_bytes_per_s": copy_bps,
+        "lattice": lattice, "nrhs": nrhs, "dtype": "f32"})
     print(f"total: {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

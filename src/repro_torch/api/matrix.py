@@ -23,7 +23,9 @@ class WilsonMatrix:
 
     :meth:`encode` / :meth:`decode` / :meth:`apply_native` /
     :meth:`dagger_native` expose the native-domain boundary the Krylov
-    solvers iterate behind.
+    solvers iterate behind.  A leading ``nrhs`` axis on the vector
+    (complex ``(nrhs, T, Z, Y, Xh, 4, 3)``) selects the batched
+    operators.
     """
 
     def __init__(self, ops, kappa: float, lattice: LatticeSpec,
@@ -52,6 +54,9 @@ class WilsonMatrix:
     def domain(self) -> str:
         return self.ops.domain
 
+    def _native_batched(self, v) -> bool:
+        return v.ndim == (7 if self.ops.domain == "complex" else 6)
+
     def apply(self, psi):
         """``Dhat psi`` on complex even-half spinors."""
         return self.decode(self.apply_native(self.encode(psi))).to(
@@ -69,18 +74,25 @@ class WilsonMatrix:
         return self.dagger(self.apply(psi))
 
     def encode(self, psi):
-        """Complex spinor -> native vector."""
-        return self.ops.to_domain(psi)
+        """Complex spinor -> native vector (batched by a leading axis)."""
+        return (self.ops.to_domain_batched(psi) if psi.ndim == 7
+                else self.ops.to_domain(psi))
 
     def decode(self, v):
         """Native vector -> complex spinor."""
-        return self.ops.from_domain(v)
+        return (self.ops.from_domain_batched(v) if self._native_batched(v)
+                else self.ops.from_domain(v))
 
     def apply_native(self, v):
-        return self.ops.apply_dhat_native(v, self.kappa)
+        fn = (self.ops.apply_dhat_native_batched if self._native_batched(v)
+              else self.ops.apply_dhat_native)
+        return fn(v, self.kappa)
 
     def dagger_native(self, v):
-        return self.ops.apply_dhat_dagger_native(v, self.kappa)
+        fn = (self.ops.apply_dhat_dagger_native_batched
+              if self._native_batched(v)
+              else self.ops.apply_dhat_dagger_native)
+        return fn(v, self.kappa)
 
     def __repr__(self):
         return (f"WilsonMatrix(backend={self.backend.name!r}, "

@@ -7,8 +7,9 @@
   device (``cuda_fused`` on ``cuda``, ``torch_ref`` on ``cpu``);
 * :class:`SolveSpec` — the Krylov configuration.
 
-The port solves one right-hand side at a time, without refinement or
-deflation: specs that ask for those raise ``NotImplementedError``.
+Solves take one source or a block of them (a leading ``nrhs`` axis);
+specs that ask for refinement or deflation raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -79,9 +80,11 @@ class LatticeSpec:
         T, Z, Y, Xh = U_e.shape[1:5]
         return cls((T, Z, Y, 2 * Xh))
 
-    def spinor_eo_shape(self):
-        """Shape of one even/odd spinor half."""
-        return (self.T, self.Z, self.Y, self.Xh, 4, 3)
+    def spinor_eo_shape(self, nrhs: Optional[int] = None):
+        """Shape of one even/odd spinor half; with ``nrhs`` a leading
+        RHS axis (a batched source block)."""
+        base = (self.T, self.Z, self.Y, self.Xh, 4, 3)
+        return base if nrhs is None else (int(nrhs),) + base
 
 
 _DTYPE_ALIASES = {
@@ -187,8 +190,9 @@ class SolveSpec:
 
     ``method`` comes from :data:`repro_torch.core.solver.KRYLOV_METHODS`.
     ``guard``, ``stagnation_window`` and ``max_restarts`` tune the
-    divergence guards.  ``nrhs`` above 1, ``inner_dtype`` (mixed
-    precision) and ``deflate_rank`` above 0 are not ported yet.
+    divergence guards.  ``nrhs`` pins the width of a batched source
+    block (``None``: whatever the source carries).  ``inner_dtype``
+    (mixed precision) and ``deflate_rank`` above 0 are not ported yet.
     """
 
     METHODS = _solver.KRYLOV_METHODS
@@ -225,10 +229,8 @@ class SolveSpec:
         if self.max_restarts < 0:
             raise ValueError(
                 f"max_restarts must be >= 0; got {self.max_restarts}")
-        if self.nrhs is not None and self.nrhs != 1:
-            raise NotImplementedError(
-                f"nrhs={self.nrhs}: batched (multi-RHS) solves are not "
-                "ported yet")
+        if self.nrhs is not None and self.nrhs < 1:
+            raise ValueError(f"nrhs must be >= 1; got {self.nrhs}")
         if self.inner_dtype is not None:
             raise NotImplementedError(
                 "inner_dtype: mixed-precision refinement is not ported "
@@ -237,21 +239,34 @@ class SolveSpec:
             raise NotImplementedError(
                 "deflate_rank: deflation is not ported yet")
 
-    def validate_rhs(self, eta_e, eta_o, lattice: LatticeSpec) -> None:
-        """Check an unbatched source pair against the lattice."""
-        want = lattice.spinor_eo_shape()
-        for name, eta in (("eta_e", eta_e), ("eta_o", eta_o)):
-            if tuple(eta.shape) != want:
-                raise ValueError(
-                    f"{name} shape {tuple(eta.shape)} does not match "
-                    f"lattice {lattice.extents} (expected {want}; batched "
-                    "sources are not ported yet)")
+    def validate_rhs(self, eta_e, eta_o, lattice: LatticeSpec) -> bool:
+        """Check a source pair against the lattice and ``nrhs``; returns
+        whether the solve is batched (a leading RHS axis)."""
+        if tuple(eta_e.shape) != tuple(eta_o.shape):
+            raise ValueError(
+                f"even/odd sources disagree: {tuple(eta_e.shape)} vs "
+                f"{tuple(eta_o.shape)}")
+        batched = eta_e.ndim == 7
+        want = lattice.spinor_eo_shape(eta_e.shape[0] if batched else None)
+        if tuple(eta_e.shape) != want:
+            raise ValueError(
+                f"source shape {tuple(eta_e.shape)} does not match "
+                f"lattice {lattice.extents} (expected {want}; a leading "
+                "axis selects the batched multi-RHS pipeline)")
+        got_nrhs = eta_e.shape[0] if batched else 1
+        if self.nrhs is not None and self.nrhs != got_nrhs:
+            raise ValueError(
+                f"SolveSpec.nrhs={self.nrhs} but the source block has "
+                f"nrhs={got_nrhs}")
+        return batched
 
     def cache_token(self) -> str:
         """Compact form used in session stats keys."""
         parts = [self.method, f"tol{self.tol:g}", f"mi{self.max_iters}"]
         if self.recompute_every:
             parts.append(f"re{self.recompute_every}")
+        if self.nrhs is not None:
+            parts.append(f"nrhs{self.nrhs}")
         if not self.guard:
             parts.append("noguard")
         else:

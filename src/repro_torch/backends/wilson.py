@@ -5,14 +5,22 @@
   ``jnp``.
 * ``cuda_hop`` — planar, ``Dhat`` as two launches of kernel B1 (policy
   ``unfused``); the role of ``pallas``.
-* ``cuda_fused`` — planar, ``Dhat`` by the auto policy (kernel B2); the
-  role of ``pallas_fused``.
+* ``cuda_fused`` — planar, ``Dhat`` by the auto policy (kernel B2 or
+  B3 by the shape); the role of ``pallas_fused``.
+* ``cuda_fused_stream`` — planar, ``Dhat`` by policy ``stream`` (kernel
+  B3, the ring of t-rows) at every shape; the role of
+  ``pallas_fused_stream``.
 
 Factories take complex even/odd gauge halves and convert them to the
 planar layout once, at bind time, on the gauge's device.  The dagger of
-the planar backends is ``gamma5 Dhat gamma5`` on planar planes.
+the planar backends is ``gamma5 Dhat gamma5`` on planar planes.  The
+planar kernels take a leading RHS axis, so the planar backends hand
+batched vectors straight to them; ``torch_ref`` maps its complex
+operators over the batch (the ``WilsonOps`` default).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -40,7 +48,9 @@ def make_torch_ref_backend(U_e, U_o, **_unused) -> WilsonOps:
         from_domain=identity,
         hop_oe=lambda psi_e: evenodd.hop_oe(U_e, U_o, psi_e),
         hop_eo=lambda psi_o: evenodd.hop_eo(U_e, U_o, psi_o),
-        apply_dhat=apply_dhat, apply_dhat_dagger=apply_dhat_dagger)
+        apply_dhat=apply_dhat, apply_dhat_dagger=apply_dhat_dagger,
+        batched={"to_domain_batched": identity,
+                 "from_domain_batched": identity})
 
 
 def _dagger_via_gamma5_planar(apply_dhat_native):
@@ -72,11 +82,19 @@ def _make_planar(U_e, U_o, *, name: str, policy: str, dtype="f32",
         return ops.apply_dhat_planar_any(u_e_p, u_o_p, v, kappa,
                                          policy=policy)
 
+    apply_dhat_dagger = _dagger_via_gamma5_planar(apply_dhat)
+    # Every planar operator and codec takes the leading RHS axis as is.
     return WilsonOps.from_native(
         name, domain="planar", to_domain=to_domain,
         from_domain=layout.spinor_from_planar, hop_oe=hop_oe,
         hop_eo=hop_eo, apply_dhat=apply_dhat,
-        apply_dhat_dagger=_dagger_via_gamma5_planar(apply_dhat))
+        apply_dhat_dagger=apply_dhat_dagger,
+        batched={"to_domain_batched": to_domain,
+                 "from_domain_batched": layout.spinor_from_planar,
+                 "hop_oe_native_batched": hop_oe,
+                 "hop_eo_native_batched": hop_eo,
+                 "apply_dhat_native_batched": apply_dhat,
+                 "apply_dhat_dagger_native_batched": apply_dhat_dagger})
 
 
 def make_cuda_hop_backend(U_e, U_o, *, dtype="f32",
@@ -88,10 +106,11 @@ def make_cuda_hop_backend(U_e, U_o, *, dtype="f32",
 
 def make_cuda_fused_backend(U_e, U_o, *, dtype="f32",
                             gauge_compression="none", policy="auto",
-                            **_unused) -> WilsonOps:
+                            name="cuda_fused", **_unused) -> WilsonOps:
     """Planar, ``Dhat`` by ``policy`` (``auto`` picks the one-launch B2
-    kernel; see :mod:`repro_torch.kernels.ops`)."""
-    return _make_planar(U_e, U_o, name="cuda_fused", policy=policy,
+    or B3 kernel by the shape; see :func:`repro_torch.kernels.ops.
+    auto_policy`)."""
+    return _make_planar(U_e, U_o, name=name, policy=policy,
                         dtype=dtype, gauge_compression=gauge_compression)
 
 
@@ -107,7 +126,8 @@ register_backend(
         name="cuda_hop", domain="planar", gauge_form="planar",
         dtypes=tuple(_DTYPES), policies=("unfused",),
         gauge_compressions=_GAUGE_COMPRESSIONS,
-        kernels=("hop_block_planar",), fallback="torch_ref",
+        kernels=("hop_block_planar",), batched_kernels=True,
+        fallback="torch_ref",
         description="planar hop-block CUDA kernel, two launches per "
                     "Dhat"))
 register_backend(
@@ -116,7 +136,22 @@ register_backend(
         name="cuda_fused", domain="planar", gauge_form="planar",
         dtypes=tuple(_DTYPES), policies=ops.DHAT_POLICIES,
         gauge_compressions=_GAUGE_COMPRESSIONS,
-        kernels=("hop_block_planar", "dhat_planar_fused"),
-        fallback="cuda_hop",
+        kernels=("hop_block_planar", "dhat_planar_fused",
+                 "dhat_planar_fused_stream"),
+        batched_kernels=True, fallback="cuda_hop",
         description="Dhat as one cooperative CUDA launch (policy auto); "
                     "two hop-block launches with policy unfused"))
+# cuda_fused with policy "stream" pinned (its capabilities allow no other),
+# as the reference's pallas_fused_stream.
+register_backend(
+    "cuda_fused_stream", functools.partial(
+        make_cuda_fused_backend, policy="stream", name="cuda_fused_stream"),
+    capabilities=BackendCapabilities(
+        name="cuda_fused_stream", domain="planar", gauge_form="planar",
+        dtypes=tuple(_DTYPES), policies=("stream",),
+        gauge_compressions=_GAUGE_COMPRESSIONS,
+        kernels=("hop_block_planar", "dhat_planar_fused_stream"),
+        batched_kernels=True, fallback="cuda_fused",
+        description="Dhat as one cooperative CUDA launch over a ring of "
+                    "4 odd-intermediate t-rows (working set independent "
+                    "of T), pinned"))

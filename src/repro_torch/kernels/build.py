@@ -29,6 +29,7 @@ _HEADERS = ("wilson_plane.cuh",)
 KERNEL_SOURCES = {
     "wilson_hop": "wilson_hop.cu",
     "wilson_dhat_fused": "wilson_dhat_fused.cu",
+    "wilson_dhat_stream": "wilson_dhat_stream.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -46,6 +47,10 @@ _ARGTYPES = {
     # kappa2, device, stream
     "wilson_dhat_fused_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _I, _I, _D, _I, _P],
+    # u_e, u_o, psi, ring, out, T, Z, Y, Xh, nrhs, window, gc, itemsize,
+    # tz_par, kappa2, device, stream
+    "wilson_dhat_stream_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _D, _I, _P],
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

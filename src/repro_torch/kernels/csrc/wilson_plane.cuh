@@ -1,7 +1,8 @@
-// Device code shared by the hop-block kernel (wilson_hop.cu) and the fused
-// Dhat kernel (wilson_dhat_fused.cu): half-spinor projection, the SU(3)
-// multiply, reconstruction, in-register link expansion, and one hopping
-// block evaluated at one site for a block of right-hand sides.
+// Device code shared by the hop-block kernel (wilson_hop.cu), the fused
+// Dhat kernel (wilson_dhat_fused.cu) and the streaming fused Dhat kernel
+// (wilson_dhat_stream.cu): half-spinor projection, the SU(3) multiply,
+// reconstruction, in-register link expansion, and one hopping block
+// evaluated at one site for a block of right-hand sides.
 //
 // Layouts (planar, identical to the reference package):
 //   spinor  [nrhs][T][Z][24][Y][Xh], component c = (spin*3 + color)*2 + reim
@@ -294,19 +295,36 @@ __device__ __forceinline__ void hop_dir(
   }
 }
 
-// One periodic hopping block at output site `idx` for right-hand sides
-// r0 .. r0+nb-1 (nb <= NB): acc[r] = sum over the 8 directions.
+// Offset of site (z, y, xh) inside one t-row [Z][24][Y][Xh] of a spinor.
+__device__ __forceinline__ int64_t row_offset(const Geom& g, int z, int y,
+                                              int xh) {
+  return static_cast<int64_t>(z) * kSpinorComps * g.plane +
+         static_cast<int64_t>(y) * g.Xh + xh;
+}
+
+// Elements of one t-row of one right-hand side: Z * 24 * Y * Xh.
+__device__ __forceinline__ int64_t row_elems(const Geom& g) {
+  return static_cast<int64_t>(g.Z) * kSpinorComps * g.plane;
+}
+
+// One periodic hopping block at output site (t, z, y, xh) for right-hand
+// sides r0 .. r0+nb-1 (nb <= NB): acc[r] = sum over the 8 directions.
 // out_parity 1 is H_oe (u_out = odd links, u_in = even links), 0 is H_eo.
 // tz_par is (t0 + z0) % 2 of the lattice origin.
+//
+// The source is read from three t-rows given by their base pointers (the
+// element (rhs r0, z=0, c=0, y=0, xh=0) of each row): src_c at t, src_tf
+// at t+1 and src_tb at t-1; consecutive right-hand sides of a row lie
+// rhs_stride elements apart.  A full-lattice source passes its rows
+// t, (t+1) % T and (t-1) % T with rhs_stride = T*Z*24*Y*Xh; the streaming
+// kernel passes slots of its row ring with the ring's stride.  The links
+// and the row parity are indexed by the logical t.
 template <typename R, int GC, int NB>
 __device__ __forceinline__ void hop_site(
-    const R* __restrict__ u_out, const R* __restrict__ u_in, const R* src,
-    const Geom& g, int64_t idx, int nb, int out_parity, int tz_par,
+    const R* __restrict__ u_out, const R* __restrict__ u_in, const R* src_c,
+    const R* src_tf, const R* src_tb, int64_t rhs_stride, const Geom& g,
+    int t, int z, int y, int xh, int nb, int out_parity, int tz_par,
     R acc[NB][24]) {
-  const int xh = static_cast<int>(idx % g.Xh);
-  const int y = static_cast<int>((idx / g.Xh) % g.Y);
-  const int z = static_cast<int>((idx / g.plane) % g.Z);
-  const int t = static_cast<int>(idx / (g.plane * g.Z));
   // Row parity (t+z+y) % 2 decides the even-odd x shift (the paper's sel).
   const int row = (t + z + y + tz_par) & 1;
   const int xf = row == ((out_parity + 1) & 1) ? (xh + 1 == g.Xh ? 0 : xh + 1)
@@ -314,14 +332,9 @@ __device__ __forceinline__ void hop_site(
   const int xb = row == (out_parity & 1) ? (xh == 0 ? g.Xh - 1 : xh - 1) : xh;
   const int yf = y + 1 == g.Y ? 0 : y + 1, yb = y == 0 ? g.Y - 1 : y - 1;
   const int zf = z + 1 == g.Z ? 0 : z + 1, zb = z == 0 ? g.Z - 1 : z - 1;
-  const int tf = t + 1 == g.T ? 0 : t + 1, tb = t == 0 ? g.T - 1 : t - 1;
+  const int tb = t == 0 ? g.T - 1 : t - 1;
 
   const int64_t plane = g.plane;
-  const int64_t rhs_stride = g.sites * kSpinorComps;
-  auto soff = [&](int tt, int zz, int yy, int xx) -> int64_t {
-    return (static_cast<int64_t>(tt) * g.Z + zz) * kSpinorComps * plane +
-           static_cast<int64_t>(yy) * g.Xh + xx;
-  };
   auto goff = [&](int mu, int tt, int zz, int yy, int xx) -> int64_t {
     return ((static_cast<int64_t>(mu) * g.T + tt) * g.Z + zz) * GC * plane +
            static_cast<int64_t>(yy) * g.Xh + xx;
@@ -333,47 +346,69 @@ __device__ __forceinline__ void hop_site(
     for (int c = 0; c < 24; ++c) acc[r][c] = R(0);
   }
   hop_dir<0, R, GC, NB>(u_out + goff(0, t, z, y, xh), u_in + goff(0, t, z, y, xb),
-                        src + soff(t, z, y, xf), src + soff(t, z, y, xb),
-                        plane, rhs_stride, nb, acc);
+                        src_c + row_offset(g, z, y, xf),
+                        src_c + row_offset(g, z, y, xb), plane, rhs_stride,
+                        nb, acc);
   hop_dir<1, R, GC, NB>(u_out + goff(1, t, z, y, xh), u_in + goff(1, t, z, yb, xh),
-                        src + soff(t, z, yf, xh), src + soff(t, z, yb, xh),
-                        plane, rhs_stride, nb, acc);
+                        src_c + row_offset(g, z, yf, xh),
+                        src_c + row_offset(g, z, yb, xh), plane, rhs_stride,
+                        nb, acc);
   hop_dir<2, R, GC, NB>(u_out + goff(2, t, z, y, xh), u_in + goff(2, t, zb, y, xh),
-                        src + soff(t, zf, y, xh), src + soff(t, zb, y, xh),
-                        plane, rhs_stride, nb, acc);
+                        src_c + row_offset(g, zf, y, xh),
+                        src_c + row_offset(g, zb, y, xh), plane, rhs_stride,
+                        nb, acc);
   hop_dir<3, R, GC, NB>(u_out + goff(3, t, z, y, xh), u_in + goff(3, tb, z, y, xh),
-                        src + soff(tf, z, y, xh), src + soff(tb, z, y, xh),
-                        plane, rhs_stride, nb, acc);
+                        src_tf + row_offset(g, z, y, xh),
+                        src_tb + row_offset(g, z, y, xh), plane, rhs_stride,
+                        nb, acc);
 }
 
-// Hop at site `idx` for every right-hand side, in blocks of NB, and store
-// out = acc, or out = psi0 + coeff * acc when psi0 is given.
+// Store acc for nb right-hand sides at `dst` (the element of rhs r0, c=0
+// at the output site), consecutive right-hand sides dst_stride apart:
+// dst = acc, or dst = psi0 + coeff * acc when psi0 (same offsets) is given.
+template <typename R, int NB>
+__device__ __forceinline__ void store_site(R* dst, const R* psi0,
+                                           int64_t dst_stride, int64_t plane,
+                                           int nb, R coeff,
+                                           R acc[NB][24]) {
+#pragma unroll
+  for (int r = 0; r < NB; ++r) {
+    if (r < nb) {
+#pragma unroll
+      for (int c = 0; c < 24; ++c) {
+        const int64_t o = r * dst_stride + c * plane;
+        dst[o] = psi0 != nullptr ? psi0[o] + coeff * acc[r][c] : acc[r][c];
+      }
+    }
+  }
+}
+
+// Hop at full-lattice site `idx` for every right-hand side, in blocks of
+// NB, and store out = acc, or out = psi0 + coeff * acc when psi0 is given.
+// The +-t neighbours are the rows (t +- 1) % T of the same array.
 template <typename R, int GC, int NB>
 __device__ __forceinline__ void hop_site_store(
     const R* __restrict__ u_out, const R* __restrict__ u_in, const R* src,
     const R* psi0, R* out, const Geom& g, int nrhs, int64_t idx,
     int out_parity, int tz_par, R coeff) {
   const int64_t rhs_stride = g.sites * kSpinorComps;
-  const int64_t xh = idx % g.Xh;
-  const int64_t y = (idx / g.Xh) % g.Y;
-  const int64_t tz = idx / g.plane;  // t * Z + z
-  const int64_t site = tz * kSpinorComps * g.plane + y * g.Xh + xh;
+  const int xh = static_cast<int>(idx % g.Xh);
+  const int y = static_cast<int>((idx / g.Xh) % g.Y);
+  const int z = static_cast<int>((idx / g.plane) % g.Z);
+  const int t = static_cast<int>(idx / (g.plane * g.Z));
+  const int tf = t + 1 == g.T ? 0 : t + 1, tb = t == 0 ? g.T - 1 : t - 1;
+  const int64_t rows = row_elems(g);
+  const int64_t site = t * rows + row_offset(g, z, y, xh);
   for (int r0 = 0; r0 < nrhs; r0 += NB) {
     const int nb = nrhs - r0 < NB ? nrhs - r0 : NB;
+    const R* s = src + r0 * rhs_stride;
     R acc[NB][24];
-    hop_site<R, GC, NB>(u_out, u_in, src + r0 * rhs_stride, g, idx, nb,
+    hop_site<R, GC, NB>(u_out, u_in, s + t * rows, s + tf * rows,
+                        s + tb * rows, rhs_stride, g, t, z, y, xh, nb,
                         out_parity, tz_par, acc);
-#pragma unroll
-    for (int r = 0; r < NB; ++r) {
-      if (r < nb) {
-        const int64_t base = (r0 + r) * rhs_stride + site;
-#pragma unroll
-        for (int c = 0; c < 24; ++c) {
-          const int64_t o = base + c * g.plane;
-          out[o] = psi0 != nullptr ? psi0[o] + coeff * acc[r][c] : acc[r][c];
-        }
-      }
-    }
+    const int64_t base = r0 * rhs_stride + site;
+    store_site<R, NB>(out + base, psi0 != nullptr ? psi0 + base : nullptr,
+                      rhs_stride, g.plane, nb, coeff, acc);
   }
 }
 

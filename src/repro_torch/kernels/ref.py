@@ -1,9 +1,11 @@
-"""Plain PyTorch versions of the two CUDA kernels (B1 and B2).
+"""Plain PyTorch versions of the CUDA kernels (B1, B2 and B3).
 
 ``hop_block_planar_ref`` mirrors the reference's vectorized
 ``hop_block_ext_planar_native`` in periodic form: the same projection,
 SU(3) multiply and reconstruction arithmetic, in the same order, on
-whole ``(T, Z, Y, Xh)`` planes instead of one site per thread.  The
+whole ``(T, Z, Y, Xh)`` planes instead of one site per thread.
+``dhat_planar_stream_ref`` walks kernel B3's produce/consume schedule
+over its ring of t-rows with the same per-row arithmetic.  The
 kernel wrappers in :mod:`repro_torch.kernels.wilson_stencil` run these on
 CPU tensors; ``chip_smoke.py`` holds the kernels against them on the
 card.
@@ -16,7 +18,8 @@ import torch
 
 from .layout import SPINOR_COMPS, expand_links_planes
 
-__all__ = ["hop_block_planar_ref", "dhat_planar_ref"]
+__all__ = ["hop_block_planar_ref", "dhat_planar_ref",
+           "dhat_planar_stream_ref"]
 
 
 def _c(p, s: int, a: int):
@@ -108,6 +111,57 @@ def _recon_acc(acc, uh, mu: int, s: int):
             add(3, a, _sgn(s, h1r), _sgn(s, h1i))
 
 
+def _hop_rows(u_out, u_in, u_tb, c, c_tf, c_tb, row, out_parity: int):
+    """The hopping-block arithmetic on component-first planes.
+
+    ``c`` / ``c_tf`` / ``c_tb``: the source at the output rows and at
+    their t+1 / t-1 neighbours, ``(24, [N,] R, Z, Y, Xh)`` for ``R``
+    t-rows; ``u_out`` / ``u_in``: ``(4, gc, R, Z, Y, Xh)`` links at the
+    output / source parity of the same rows, ``u_tb`` the source-parity
+    t-links ``(gc, R, Z, Y, Xh)`` of the rows before; ``row`` the row
+    parity ``(R, Z, Y, 1)``.  x/y/z neighbours are periodic rolls inside
+    the planes.  Returns ``([N,] R, Z, 24, Y, Xh)``.
+    """
+    mask_f = row == (out_parity + 1) % 2
+    mask_b = row == out_parity % 2
+
+    # Axes counted from the end: -4 = T, -3 = Z, -2 = Y, -1 = Xh.
+    psi_xf = torch.where(mask_f, torch.roll(c, -1, dims=-1), c)
+    psi_xb = torch.where(mask_b, torch.roll(c, +1, dims=-1), c)
+    psi_yf = torch.roll(c, -1, dims=-2)
+    psi_yb = torch.roll(c, +1, dims=-2)
+    psi_zf = torch.roll(c, -1, dims=-3)
+    psi_zb = torch.roll(c, +1, dims=-3)
+
+    ux = u_in[0]
+    u_xb = torch.where(mask_b, torch.roll(ux, +1, dims=-1), ux)
+    u_yb = torch.roll(u_in[1], +1, dims=-2)
+    u_zb = torch.roll(u_in[2], +1, dims=-3)
+
+    acc = [None] * SPINOR_COMPS
+    hops = [(psi_xf, psi_xb, u_xb), (psi_yf, psi_yb, u_yb),
+            (psi_zf, psi_zb, u_zb), (c_tf, c_tb, u_tb)]
+    for mu, (pf, pb, ub) in enumerate(hops):
+        # Forward: (1 - g_mu) U_mu(x) psi(x + mu).
+        uh = _su3_mul(expand_links_planes(u_out[mu]), _proj(pf, mu, -1),
+                      dagger=False)
+        _recon_acc(acc, uh, mu, -1)
+        # Backward: (1 + g_mu) U_mu^dag(x - mu) psi(x - mu).
+        uh = _su3_mul(expand_links_planes(ub), _proj(pb, mu, +1),
+                      dagger=True)
+        _recon_acc(acc, uh, mu, +1)
+    return torch.movedim(torch.stack(acc), 0, -3)
+
+
+def _row_parity(rows, Zl: int, Y: int, tz_offset, device):
+    """``(t + z + y + t0 + z0) % 2`` for the t-rows ``rows``, shaped
+    ``(len(rows), Z, Y, 1)``."""
+    t = torch.as_tensor(rows, device=device).reshape(-1, 1, 1, 1)
+    z = torch.arange(Zl, device=device).reshape(1, Zl, 1, 1)
+    y = torch.arange(Y, device=device).reshape(1, 1, Y, 1)
+    return (t + z + y + tz_offset[0] + tz_offset[1]) % 2
+
+
 def hop_block_planar_ref(u_out_p: torch.Tensor, u_in_p: torch.Tensor,
                          src_p: torch.Tensor, out_parity: int, *,
                          tz_offset: Tuple[int, int] = (0, 0),
@@ -125,43 +179,10 @@ def hop_block_planar_ref(u_out_p: torch.Tensor, u_in_p: torch.Tensor,
     u_in = torch.movedim(u_in_p, 3, 1)       # (4, gc, T, Z, Y, Xh)
     u_out = torch.movedim(u_out_p, 3, 1)
     Tl, Zl, Y = u_out_p.shape[1], u_out_p.shape[2], u_out_p.shape[4]
-    dev = src_p.device
-    t = torch.arange(Tl, device=dev).reshape(Tl, 1, 1, 1)
-    z = torch.arange(Zl, device=dev).reshape(1, Zl, 1, 1)
-    y = torch.arange(Y, device=dev).reshape(1, 1, Y, 1)
-    row = (t + z + y + tz_offset[0] + tz_offset[1]) % 2   # (T, Z, Y, 1)
-    mask_f = row == (out_parity + 1) % 2
-    mask_b = row == out_parity % 2
-
-    # Axes counted from the end: -4 = T, -3 = Z, -2 = Y, -1 = Xh.
-    psi_xf = torch.where(mask_f, torch.roll(c, -1, dims=-1), c)
-    psi_xb = torch.where(mask_b, torch.roll(c, +1, dims=-1), c)
-    psi_yf = torch.roll(c, -1, dims=-2)
-    psi_yb = torch.roll(c, +1, dims=-2)
-    psi_zf = torch.roll(c, -1, dims=-3)
-    psi_zb = torch.roll(c, +1, dims=-3)
-    psi_tf = torch.roll(c, -1, dims=-4)
-    psi_tb = torch.roll(c, +1, dims=-4)
-
-    ux = u_in[0]
-    u_xb = torch.where(mask_b, torch.roll(ux, +1, dims=-1), ux)
-    u_yb = torch.roll(u_in[1], +1, dims=-2)
-    u_zb = torch.roll(u_in[2], +1, dims=-3)
-    u_tb = torch.roll(u_in[3], +1, dims=-4)
-
-    acc = [None] * SPINOR_COMPS
-    hops = [(psi_xf, psi_xb, u_xb), (psi_yf, psi_yb, u_yb),
-            (psi_zf, psi_zb, u_zb), (psi_tf, psi_tb, u_tb)]
-    for mu, (pf, pb, ub) in enumerate(hops):
-        # Forward: (1 - g_mu) U_mu(x) psi(x + mu).
-        uh = _su3_mul(expand_links_planes(u_out[mu]), _proj(pf, mu, -1),
-                      dagger=False)
-        _recon_acc(acc, uh, mu, -1)
-        # Backward: (1 + g_mu) U_mu^dag(x - mu) psi(x - mu).
-        uh = _su3_mul(expand_links_planes(ub), _proj(pb, mu, +1),
-                      dagger=True)
-        _recon_acc(acc, uh, mu, +1)
-    out = torch.movedim(torch.stack(acc), 0, -3)   # ([N,] T, Z, 24, Y, Xh)
+    row = _row_parity(range(Tl), Zl, Y, tz_offset, src_p.device)
+    out = _hop_rows(u_out, u_in, torch.roll(u_in[3], +1, dims=-4), c,
+                    torch.roll(c, -1, dims=-4), torch.roll(c, +1, dims=-4),
+                    row, out_parity)
     if axpy is not None:
         coeff, psi0 = axpy
         out = psi0 + coeff * out
@@ -177,3 +198,54 @@ def dhat_planar_ref(u_e_p: torch.Tensor, u_o_p: torch.Tensor,
                                tz_offset=tz_offset)
     return hop_block_planar_ref(u_e_p, u_o_p, tmp, 0, tz_offset=tz_offset,
                                 axpy=(-(kappa * kappa), psi_e_p))
+
+
+def dhat_planar_stream_ref(u_e_p: torch.Tensor, u_o_p: torch.Tensor,
+                           psi_e_p: torch.Tensor, kappa: float, *,
+                           tz_offset: Tuple[int, int] = (0, 0),
+                           window: int = 4) -> torch.Tensor:
+    """``(1 - kappa^2 H_eo H_oe) psi_e`` by the streaming schedule of
+    kernel B3 (its plain version).
+
+    A ring of ``window`` t-rows of the odd intermediate; step ``s = 0 ..
+    T+2`` produces ``H_oe psi_e`` of source row ``(s-1) % T`` into slot
+    ``s % window`` (for ``s <= T+1``; rows ``T-1`` and ``0`` twice) and
+    consumes output row ``(s-3) % T`` from slots ``(s-3 .. s-1) %
+    window`` (for ``s >= 3``).  Produce runs before consume within a
+    step, as the kernel's grid barrier orders them only between steps;
+    both touch disjoint slots for ``window >= 4``.
+    """
+    if window < 4:
+        raise ValueError(
+            f"stream window needs >= 4 rows (3 live for the +-t stencil "
+            f"reach + 1 produce slot); got {window}")
+    c = torch.movedim(psi_e_p, -3, 0)        # (24, [N,] T, Z, Y, Xh)
+    ue = torch.movedim(u_e_p, 3, 1)          # (4, gc, T, Z, Y, Xh)
+    uo = torch.movedim(u_o_p, 3, 1)
+    Tl, Zl, Y = u_e_p.shape[1], u_e_p.shape[2], u_e_p.shape[4]
+    dev = psi_e_p.device
+    k2 = kappa * kappa
+
+    def rows(a, t):                          # t-row t of a component-
+        return a.narrow(-4, t % Tl, 1)       # first field, kept as R=1
+
+    ring = [None] * window                   # component-first rows
+    out = torch.empty_like(psi_e_p)
+    for s in range(Tl + 3):
+        if s <= Tl + 1:
+            t = (s - 1) % Tl
+            ring[s % window] = _hop_rows(
+                rows(uo, t), rows(ue, t), rows(ue[3], t - 1), rows(c, t),
+                rows(c, t + 1), rows(c, t - 1),
+                _row_parity([t], Zl, Y, tz_offset, dev), 1)
+            ring[s % window] = torch.movedim(ring[s % window], -3, 0)
+        if s >= 3:
+            t = (s - 3) % Tl
+            hop = _hop_rows(
+                rows(ue, t), rows(uo, t), rows(uo[3], t - 1),
+                ring[(s - 2) % window], ring[(s - 1) % window],
+                ring[(s - 3) % window],
+                _row_parity([t], Zl, Y, tz_offset, dev), 0)
+            psi0 = psi_e_p.narrow(-5, t, 1)
+            out.narrow(-5, t, 1).copy_(psi0 + (-k2) * hop)
+    return out

@@ -1,4 +1,4 @@
-"""Wrappers of the two hand-written CUDA kernels of the Wilson stencil.
+"""Wrappers of the hand-written CUDA kernels of the Wilson stencil.
 
 * :func:`hop_block_planar` — kernel B1 (``csrc/wilson_hop.cu``), one
   even-odd hopping block with an optional fused axpy epilogue; port of
@@ -6,6 +6,10 @@
 * :func:`dhat_planar_fused` — kernel B2 (``csrc/wilson_dhat_fused.cu``),
   ``psi_e - kappa^2 H_eo H_oe psi_e`` in one cooperative launch; port of
   the reference's ``dhat_planar_fused`` Pallas kernel.
+* :func:`dhat_planar_fused_stream` — kernel B3
+  (``csrc/wilson_dhat_stream.cu``), the same ``Dhat`` in one cooperative
+  launch whose odd intermediate lives in a ring of ``window`` t-rows;
+  port of the reference's ``dhat_planar_fused_stream`` Pallas kernel.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with ``torch.empty``, launches on the current CUDA
@@ -17,6 +21,7 @@ kernel launches per wrapper (plain-version calls are not counted).
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -25,8 +30,11 @@ from . import build, ref
 from .layout import (GAUGE_COMPS, GAUGE_COMPS_MINIMAL, GAUGE_COMPS_TWO_ROW,
                      SPINOR_COMPS)
 
-__all__ = ["hop_block_planar", "dhat_planar_fused", "hop_traffic_model",
-           "HOP_FLOPS_PER_SITE", "LAUNCHES", "reset_launch_counts"]
+__all__ = ["hop_block_planar", "dhat_planar_fused",
+           "dhat_planar_fused_stream", "hop_traffic_model",
+           "dhat_stream_traffic_model", "stream_ring_bytes",
+           "STREAM_WINDOW_ROWS", "HOP_FLOPS_PER_SITE", "LAUNCHES",
+           "reset_launch_counts"]
 
 # Flops per lattice site of one hopping block application, QXS convention.
 HOP_FLOPS_PER_SITE = 1320
@@ -43,7 +51,13 @@ LINKS_EXPANDED_PER_SITE = 8
 _KERNEL_DTYPES = (torch.float32, torch.float64)
 
 #: kernel launches per wrapper since the last :func:`reset_launch_counts`
-LAUNCHES = {"hop_block_planar": 0, "dhat_planar_fused": 0}
+LAUNCHES = {"hop_block_planar": 0, "dhat_planar_fused": 0,
+            "dhat_planar_fused_stream": 0}
+
+# Ring rows of odd-intermediate t-planes of the streaming kernel B3: 3
+# live rows cover the +-t reach of the second hopping block, +1 is the
+# row being produced while the previous three are consumed.
+STREAM_WINDOW_ROWS = 4
 
 
 def reset_launch_counts() -> None:
@@ -77,6 +91,51 @@ def hop_traffic_model(Tl: int, Zl: int, Y: int, Xh: int, *,
         "bytes_gauge": bytes_gauge,
         "bytes_total": total,
         "intensity_flops_per_byte": flops / total,
+    }
+
+
+def stream_ring_bytes(psi_e_p_shape, itemsize: int = 4,
+                      window: int = STREAM_WINDOW_ROWS) -> int:
+    """Bytes of B3's ring of t-rows: ``window * Z * 24 * nrhs * Y * Xh``
+    elements of the planar spinor shape ``([nrhs,] T, Z, 24, Y, Xh)`` —
+    independent of T.  A report-only model (the reference's
+    ``stream_ring_bytes`` with an int itemsize)."""
+    lead = 1 if len(psi_e_p_shape) == 6 else 0
+    per_row = math.prod(psi_e_p_shape) // psi_e_p_shape[lead]
+    return itemsize * window * per_row
+
+
+def dhat_stream_traffic_model(Tl: int, Zl: int, Y: int, Xh: int, *,
+                              nrhs: int = 1, itemsize: int = 4,
+                              window: int = STREAM_WINDOW_ROWS,
+                              gauge_comps: int = GAUGE_COMPS) -> dict:
+    """Traffic, flops and scratch of one streaming ``Dhat`` (B3), as the
+    reference models them: the first hop recomputes 2 boundary rows and
+    re-fetches their operands, a ``(T+2)/T`` factor; the ring replaces
+    the full-lattice scratch.  A report-only model: the bound of B3 is
+    B2's (``psi_e`` in, the result out, both gauge parities once)."""
+    m = hop_traffic_model(Tl, Zl, Y, Xh, nrhs=nrhs, itemsize=itemsize,
+                          gauge_comps=gauge_comps)
+    sites = Tl * Zl * Y * Xh
+    produce_scale = (Tl + 2) / Tl
+    flops = (int(m["flops"] * produce_scale)      # H_oe incl. recompute
+             + m["flops"]                          # H_eo
+             + 2 * SPINOR_COMPS * sites * nrhs)    # axpy epilogue
+    spinor1 = itemsize * SPINOR_COMPS * sites * nrhs
+    bytes_spinor = int(spinor1 * (produce_scale + 2))  # psi in, psi0, out
+    bytes_gauge = int(m["bytes_gauge"] * (produce_scale + 1))
+    shape = ((nrhs,) if nrhs > 1 else ()) + (Tl, Zl, SPINOR_COMPS, Y, Xh)
+    return {
+        "flops": flops,
+        "bytes_spinor": bytes_spinor,
+        "bytes_gauge": bytes_gauge,
+        "bytes_total": bytes_spinor + bytes_gauge,
+        "intensity_flops_per_byte": flops / (bytes_spinor + bytes_gauge),
+        "recompute_rows": 2,
+        "window_rows": window,
+        "vmem_ring_bytes": stream_ring_bytes(shape, itemsize,
+                                             window=window),
+        "vmem_resident_bytes": itemsize * math.prod(shape),
     }
 
 
@@ -195,4 +254,44 @@ def dhat_planar_fused(u_e_p: torch.Tensor, u_o_p: torch.Tensor,
         raise RuntimeError(
             f"wilson_dhat_fused_launch failed: CUDA error {rc}")
     LAUNCHES["dhat_planar_fused"] += 1
+    return out
+
+
+def dhat_planar_fused_stream(u_e_p: torch.Tensor, u_o_p: torch.Tensor,
+                             psi_e_p: torch.Tensor, kappa: float, *,
+                             tz_offset: Tuple[int, int] = (0, 0),
+                             window: int = STREAM_WINDOW_ROWS
+                             ) -> torch.Tensor:
+    """``(1 - kappa^2 H_eo H_oe) psi_e`` as one cooperative launch whose
+    odd intermediate lives in a ring of ``window`` t-rows (B3).
+
+    The ring, ``(nrhs, window, Z, 24, Y, Xh)``, is allocated here; its
+    size does not depend on T.  Shapes and dtypes as
+    :func:`hop_block_planar`; periodic single shard.  ``window < 4``
+    raises ``ValueError``.
+    """
+    if window < STREAM_WINDOW_ROWS:
+        raise ValueError(
+            f"stream window needs >= {STREAM_WINDOW_ROWS} rows (3 live "
+            f"for the +-t stencil reach + 1 produce slot); got {window}")
+    T, Z, Y, Xh, nrhs, gc = _check_fields((u_e_p, u_o_p), (psi_e_p,),
+                                          what="dhat_planar_fused_stream")
+    if psi_e_p.device.type == "cpu":
+        return ref.dhat_planar_stream_ref(u_e_p, u_o_p, psi_e_p, kappa,
+                                          tz_offset=tz_offset,
+                                          window=window)
+    ring = torch.empty((nrhs, window, Z, SPINOR_COMPS, Y, Xh),
+                       dtype=psi_e_p.dtype, device=psi_e_p.device)
+    out = torch.empty_like(psi_e_p)
+    lib = build.load("wilson_dhat_stream")
+    dev = psi_e_p.device
+    rc = lib.wilson_dhat_stream_launch(
+        u_e_p.data_ptr(), u_o_p.data_ptr(), psi_e_p.data_ptr(),
+        ring.data_ptr(), out.data_ptr(), T, Z, Y, Xh, nrhs, int(window),
+        gc, psi_e_p.element_size(), (tz_offset[0] + tz_offset[1]) & 1,
+        float(kappa) ** 2, dev.index or 0, _stream(dev))
+    if rc != 0:
+        raise RuntimeError(
+            f"wilson_dhat_stream_launch failed: CUDA error {rc}")
+    LAUNCHES["dhat_planar_fused_stream"] += 1
     return out

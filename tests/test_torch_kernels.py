@@ -144,28 +144,66 @@ def test_tz_offset_flips_the_parity_mask():
     assert not torch.allclose(a, c)
 
 
-def test_auto_policy_is_resident_at_the_slice_shapes(monkeypatch):
-    """``auto`` takes the one-launch B2 path at 16^4, wilson-64x16x16x8
-    and wilson-64x32x32x16 (past the L2), in f32 and f64; ``unfused``
-    takes the two-launch path.  Shape-only tensors on the meta device."""
+def _policy_taken(monkeypatch, cases):
+    """The path ``auto`` and ``unfused`` take for each ``(shape, dtype,
+    gc)`` of ``cases``; shape-only tensors on the meta device."""
     taken = []
     monkeypatch.setattr(ops, "apply_dhat_planar_fused",
                         lambda *a: taken.append("resident"))
+    monkeypatch.setattr(ops, "apply_dhat_planar_stream",
+                        lambda *a: taken.append("stream"))
     monkeypatch.setattr(ops, "apply_dhat_planar",
                         lambda *a: taken.append("unfused"))
-    for T, Z, Y, Xh in ((16, 16, 16, 8), (16, 16, 16, 32), (32, 32, 32, 32)):
-        for dtype in (torch.float32, torch.float64):
-            u = torch.empty((4, T, Z, 18, Y, Xh), dtype=dtype, device="meta")
-            psi = torch.empty((T, Z, 24, Y, Xh), dtype=dtype, device="meta")
-            ops.apply_dhat_planar_any(u, u, psi, KAPPA)
-            ops.apply_dhat_planar_any(u, u, psi, KAPPA, policy="unfused")
-    assert taken == ["resident", "unfused"] * 6
+    for shape, dtype, gc in cases:
+        T, Z, Y, Xh = shape[-5], shape[-4], shape[-2], shape[-1]
+        u = torch.empty((4, T, Z, gc, Y, Xh), dtype=dtype, device="meta")
+        psi = torch.empty(shape, dtype=dtype, device="meta")
+        ops.apply_dhat_planar_any(u, u, psi, KAPPA)
+        ops.apply_dhat_planar_any(u, u, psi, KAPPA, policy="unfused")
+    return taken
+
+
+F32, F64 = torch.float32, torch.float64
+
+
+def test_auto_policy_is_resident_at_the_slice_shapes(monkeypatch):
+    """``auto`` takes the one-launch B2 path where B2 measured faster: at
+    16^4 (its links fit the L2), for a block of sources at
+    wilson-64x16x16x8, and for one source there with 12- or 8-plane f32
+    links (50.3 and 33.5 MB, inside the L2) and 8-plane f64 links
+    (67.1 MB, just past it); ``unfused`` takes the two-launch path."""
+    cases = [((16, 16, 24, 16, 8), dtype, 18) for dtype in (F32, F64)]
+    cases += [((12, 16, 16, 24, 16, 8), F32, 18),
+              ((2, 16, 16, 24, 16, 32), F32, 18),
+              ((12, 16, 16, 24, 16, 32), F64, 18),
+              ((16, 16, 24, 16, 32), F32, 12),
+              ((16, 16, 24, 16, 32), F32, 8),
+              ((16, 16, 24, 16, 32), F64, 8)]
+    assert _policy_taken(monkeypatch, cases) == ["resident", "unfused"] * 8
+
+
+def test_auto_policy_streams_single_sources_on_large_lattices(monkeypatch):
+    """``auto`` takes B3 for one source whose links exceed 72 MB, where
+    B3 measured faster: wilson-64x16x16x8 with full links (f32 and f64)
+    and 12-plane f64 links, and wilson-64x32x32x16 with every link
+    form."""
+    cases = [((16, 16, 24, 16, 32), F32, 18), ((16, 16, 24, 16, 32), F64, 18),
+             ((16, 16, 24, 16, 32), F64, 12),
+             ((1, 16, 16, 24, 16, 32), F32, 18)]
+    cases += [((32, 32, 24, 32, 32), dtype, gc)
+              for dtype in (F32, F64) for gc in (18, 12, 8)]
+    assert _policy_taken(monkeypatch, cases) == ["stream", "unfused"] * 10
+    assert ops.auto_policy((16, 16, 24, 16, 32), 4, 12) == "resident"
+    assert ops.auto_policy((4, 32, 32, 24, 32, 32), 4, 18) == "resident"
 
 
 def test_stream_policy_and_unknown_policy_raise():
+    """Policy ``stream`` computes the same ``Dhat`` as ``resident`` (the
+    plain versions agree bit for bit); an unknown policy raises."""
     u_e, u_o, psi, _ = (_t(a) for a in planar_inputs("4x4x4x8", 18, 1))
-    with pytest.raises(NotImplementedError, match="B3"):
-        ops.apply_dhat_planar_any(u_e, u_o, psi, KAPPA, policy="stream")
+    stream = ops.apply_dhat_planar_any(u_e, u_o, psi, KAPPA, policy="stream")
+    assert torch.equal(stream, ops.apply_dhat_planar_any(
+        u_e, u_o, psi, KAPPA, policy="resident"))
     with pytest.raises(ValueError, match="policy"):
         ops.apply_dhat_planar_any(u_e, u_o, psi, KAPPA, policy="fast")
 
@@ -193,8 +231,10 @@ def test_plain_versions_do_not_count_as_launches():
     u_e, u_o, psi, _ = (_t(a) for a in planar_inputs("4x4x4x8", 18, 1))
     ws.reset_launch_counts()
     ops.apply_dhat_planar_any(u_e, u_o, psi, KAPPA)
+    ops.apply_dhat_planar_any(u_e, u_o, psi, KAPPA, policy="stream")
     ops.hop_block(u_o, u_e, psi, out_parity=1)
-    assert ws.LAUNCHES == {"hop_block_planar": 0, "dhat_planar_fused": 0}
+    assert ws.LAUNCHES == {"hop_block_planar": 0, "dhat_planar_fused": 0,
+                           "dhat_planar_fused_stream": 0}
 
 
 @pytest.mark.parametrize("gc", [18, 12, 8])

@@ -156,7 +156,8 @@ def test_launch_solve_cli_planar_backend_on_cpu(capsys):
     assert out["domain"] == "planar"
     assert out["residuals"][0] <= 1e-5
     assert out["launches"] == {"hop_block_planar": 0,
-                               "dhat_planar_fused": 0}
+                               "dhat_planar_fused": 0,
+                               "dhat_planar_fused_stream": 0}
 
 
 def test_backend_auto_resolves_by_device():
@@ -183,22 +184,12 @@ def test_cuda_request_without_gpu_raises():
         convert.spinor_from_reference(np.zeros(3, np.float32), "cuda")
 
 
-def test_specs_refuse_what_is_not_ported(problem):
-    with pytest.raises(NotImplementedError, match="batched"):
-        api.SolveSpec(nrhs=4)
+def test_specs_refuse_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="mixed"):
         api.SolveSpec(inner_dtype="f32")
     with pytest.raises(NotImplementedError, match="deflation"):
         api.SolveSpec(deflate_rank=4)
     with pytest.raises(NotImplementedError, match="bf16"):
         api.BackendSpec("cuda_fused", dtype="bf16")
-    Ue, Uo, ee, eo = problem
-    tUe, tUo = convert.gauge_from_reference(Ue, Uo, "cpu")
-    session = api.SolveSession(api.WilsonMatrix.bind(tUe, tUo, KAPPA))
-    e = convert.spinor_from_reference(np.stack([ee, ee]), "cpu")
-    with pytest.raises(ValueError, match="batched"):
-        session.solve(e, e)
-    matrix = api.WilsonMatrix.bind(tUe, tUo, KAPPA, backend=api.BackendSpec(
-        "cuda_fused", opts=(("policy", "stream"),)))
-    with pytest.raises(NotImplementedError, match="B3"):
-        matrix(convert.spinor_from_reference(ee, "cpu"))
+    with pytest.raises(NotImplementedError, match="bf16"):
+        api.BackendSpec("cuda_fused_stream", dtype="bf16")
