@@ -1,41 +1,47 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``repro_torch``) on one GPU.
 
-    python3 chip_smoke.py          # every phase, one card
+    python3 chip_smoke.py                      # every phase, one card
+    python3 chip_smoke.py --parent-log FILE    # and another run's B2/B3
 
 Run from a checkout: it builds the CUDA kernels from
 ``src/repro_torch/kernels/csrc`` with ``nvcc`` (sm_90a), then
 
-1. prints the card's name and power limit (``nvidia-smi``) and the
-   build time;
+1. prints the card's name and power limit (``nvidia-smi``), the build
+   time and, per kernel instantiation, registers, spill stores and
+   static shared memory; fails if an f32 full-link instantiation of B2
+   or B3 spills;
 2. holds kernel B1 (hop block) against its plain PyTorch version on the
    card over both parities, axpy on/off, gc 18/12/8, nrhs 1/4/12 (12 is
-   the slice-2 path's block, three RHS blocks of 4), f32/f64,
-   on (3,5,3,6), wilson-16x16x16x16 and wilson-64x16x16x8
-   (tolerance: f32 5e-5, f64 1e-10 absolute, the reference's parity
-   tolerances);
+   the propagator's block), f32/f64, on (3,5,3,6), a ragged (4,5,3,10),
+   wilson-16x16x16x16 and wilson-64x16x16x8 (tolerance: f32 5e-5, f64
+   1e-10 absolute, the reference's parity tolerances);
 3. holds kernel B2 (fused Dhat) against its plain version and against
-   the two-launch B1 Dhat over the same grid;
-4. holds kernel B3 (the streaming fused Dhat over a ring of t-rows)
-   against its plain version, which walks the same schedule, and against
-   B2 over f32/f64, gc 18/12/8, nrhs 1/4/12, tz_offset (0,0)/(1,0) on
-   the same three shapes, plus one window=5 case;
+   the two-launch B1 Dhat over the same shapes with nrhs 1/3/4/5/12 (3
+   and 5 give uneven thread groups; the ragged shape's Y*Xh and Z are no
+   multiples of the tiles);
+4. holds kernel B3 (the streaming fused Dhat over a ring of t-rows,
+   ordered by flags) against its plain version, which walks the same
+   schedule, and against B2, bit for bit, over f32/f64, gc 18/12/8,
+   nrhs 1/3/4/5/12, tz_offset (0,0)/(1,0) on the same shapes, plus rings
+   of 4 and 5 rows (the default is 8);
 5. drives the main path, ``repro_torch.launch.solve.main`` with cgnr,
    tol 1e-6 and backend auto (which must resolve to cuda_fused), at
    wilson-16x16x16x16 and wilson-64x16x16x8, with the launch counters
    set to 0 just before each run; checks the full-lattice residual and
-   that every Dhat went through the kernel measured faster there (B2 at
-   16^4, B3 at wilson-64x16x16x8, whose links well exceed the L2; written
+   that every Dhat went through the kernel measured faster there (written
    out in ``MAIN_LATTICES``, not asked of the rule under test), then
    solves once more with the torch_ref backend on the card;
 6. drives the multi-RHS path: one 12-source propagator per solve at
    wilson-16x16x16x16 with ``--nrhs 12 --backend cuda_fused_stream``,
    counters set to 0 just before; checks every column's full-lattice
    residual and that every Dhat was a B3 launch; then the same solve with
-   ``--backend auto``;
+   ``--backend auto``, whose Dhats must be the kernel measured faster
+   for a block (``PROPAGATOR_AUTO_KERNEL``, B3);
 7. times the unbatched solve against the batched pipeline with a block
    of one source at wilson-16x16x16x16 (the candidate removal of the
-   unbatched solvers);
+   unbatched solvers), and the 12-source propagator's steady solve under
+   ``auto`` and ``cuda_fused_stream``;
 8. times each kernel at the main paths' shapes with CUDA events (median
    of 100 launches after a warm-up, device time) beside its bound, its
    wall time per call with host work, and its plain version's; then
@@ -44,7 +50,10 @@ Run from a checkout: it builds the CUDA kernels from
    wilson-64x16x16x8 and wilson-64x32x32x16 with nrhs 1, 2, 4 and 12,
    and with one source in f64 and f32 with each link form), and the
    two-launch B1 Dhat at wilson-64x32x32x16, where the odd intermediate
-   (100 MB in f32) no longer fits the 50 MB L2.
+   (100 MB in f32) no longer fits the 50 MB L2.  With ``--parent-log
+   FILE``, the output of another run (the parent commit's
+   ``chip_smoke.py``, run in the same call) gives its B2 and B3 times at
+   each policy point beside this run's.
 
 It exits non-zero at the first failed phase.  The line before the last
 is a JSON object ``{"kernels": [...]}``; the last line is
@@ -53,6 +62,7 @@ reference package.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import re
 import statistics
@@ -68,15 +78,24 @@ ATOL = {"f32": 5e-5, "f64": 1e-10}
 KAPPA = 0.13
 CHECK_SHAPES = {               # (T, Z, Y, X) full lattice
     "odd-3x5x3x6": (3, 5, 3, 6),
+    # Ragged tiles of B2/B3: Y*Xh = 15 and Z = 5 are no multiples of them.
+    "ragged-4x5x3x10": (4, 5, 3, 10),
     "wilson-16x16x16x16": (16, 16, 16, 16),
     "wilson-64x16x16x8": (16, 16, 16, 64),
 }
+# Source counts at which B2 and B3 meet their plain versions: 1 (two
+# threads per site in f64), 3 and 5 (uneven groups of threads), 4 and 12
+# (the propagator's block).
+FUSED_NRHS = (1, 3, 4, 5, 12)
 # (lattice, solves, the Dhat kernel auto must launch there): B2 measured
 # faster at 16^4, B3 at wilson-64x16x16x8 with one source (PERF.md 6).
 MAIN_LATTICES = (("wilson-16x16x16x16", 2, "dhat_planar_fused"),
                  ("wilson-64x16x16x8", 1, "dhat_planar_fused_stream"))
-# The multi-RHS path: one point-source propagator (4 spins x 3 colours).
+# The multi-RHS path: one point-source propagator (4 spins x 3 colours),
+# and the Dhat kernel auto must launch for it: B3 measured faster for a
+# block of sources (PERF.md 6).
 PROPAGATOR = ("wilson-16x16x16x16", 12, 2)     # lattice, nrhs, solves
+PROPAGATOR_AUTO_KERNEL = "dhat_planar_fused_stream"
 # The largest lattice of the configs, where B2's scratch overflows the L2.
 BIG_LATTICE = ("wilson-64x32x32x16", (32, 32, 32, 64))
 # (lattice, nrhs, dtype, gc) where B3 is timed against B2: the points
@@ -132,29 +151,36 @@ def fields(shape, dtype, device, seed):
 
 def ptxas_summary(log):
     """One line per kernel instantiation from ``nvcc -Xptxas -v``:
-    (kernel<type, gc, nb>, registers, spill store bytes)."""
+    (kernel<type, gc, nb or D>, registers, spill store bytes, static
+    shared memory; B2 and B3 take their tile's shared memory dynamically,
+    printed per shape by the timing phase)."""
     names = {"f": "float", "d": "double"}
-    out, current, spill = [], None, "0"
+    out, current, spill, smem = [], None, "0", "0"
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?(hop_kernel|"
                       r"dhat_fused_kernel|dhat_stream_kernel)I([fd])Li(\d+)"
                       r"ELi(\d+)E", line)
         if m:
+            last = "nb" if m.group(1) == "hop_kernel" else "D"
             current = (f"{m.group(1)}<{names[m.group(2)]}, gc={m.group(3)},"
-                       f" nb={m.group(4)}>")
+                       f" {last}={m.group(4)}>")
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and current:
             spill = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
         if m and current:
+            sm = re.search(r"(\d+) bytes smem", line)
+            smem = sm.group(1) if sm else "0"
             out.append(f"{current}: {m.group(1)} registers, {spill} B "
-                       "spill stores")
+                       f"spill stores, {smem} B static smem")
             current, spill = None, "0"
     return out
 
 
 def phase_build():
+    """Build the kernels; fails if an f32 instantiation of B2 or B3 that
+    the driven paths launch (full links) spills."""
     from repro_torch.kernels import build
     t0 = time.time()
     result = build.build_all(verbose=True)
@@ -164,7 +190,30 @@ def phase_build():
     for name, info in result.items():
         for line in ptxas_summary(info["log"]):
             print(f"  ptxas {line}")
-    return seconds
+            if (re.match(r"dhat_\w+_kernel<float, gc=18,", line)
+                    and " 0 B spill" not in line):
+                raise PhaseError(f"f32 Dhat kernel spills: {line}")
+
+
+def parent_times(path):
+    """``{(lattice, nrhs, dtype, gc): {kernel: median us}}`` from the
+    policy-point lines (``time: ... device us in run order ...``) of
+    another run's output, such as the parent commit's."""
+    pat = re.compile(r"time: (\S+) (f32|f64) gc=(\d+) nrhs=(\d+) Dhat .*?"
+                     r"device us in run order (.*?); bound")
+    out = {}
+    for line in Path(path).read_text().splitlines():
+        m = pat.match(line)
+        if not m:
+            continue
+        readings = {}
+        for item in m.group(5).split(", "):
+            label, us = item.rsplit(" ", 1)
+            readings.setdefault(label, []).append(float(us))
+        out[(m.group(1), int(m.group(4)), m.group(2), int(m.group(3)))] = {
+            k: statistics.median(v) for k, v in readings.items()}
+    check(out, f"--parent-log {path}: no policy-point lines")
+    return out
 
 
 def phase_b1(device):
@@ -214,7 +263,7 @@ def phase_b2(device):
         for dtype in ("f32", "f64"):
             gauges, spinor = fields(shape, dtype, device, seed=12)
             for gc, (u_e, u_o) in gauges.items():
-                for nrhs in (1, 4, 12):
+                for nrhs in FUSED_NRHS:
                     psi = spinor(nrhs)
                     got = ws.dhat_planar_fused(u_e, u_o, psi, KAPPA)
                     want = ref.dhat_planar_ref(u_e, u_o, psi, KAPPA)
@@ -245,7 +294,7 @@ def phase_b3(device):
         for dtype in ("f32", "f64"):
             gauges, spinor = fields(shape, dtype, device, seed=15)
             for gc, (u_e, u_o) in gauges.items():
-                for nrhs in (1, 4, 12):
+                for nrhs in FUSED_NRHS:
                     psi = spinor(nrhs)
                     for tz in ((0, 0), (1, 0)):
                         got = ws.dhat_planar_fused_stream(
@@ -259,26 +308,33 @@ def phase_b3(device):
                         err2 = float((got - b2).abs().max())
                         worst[dtype] = max(worst[dtype], err, err2)
                         cases += 1
-                        check(max(err, err2) <= ATOL[dtype],
+                        check(err <= ATOL[dtype] and torch.equal(got, b2),
                               f"B3 {sname} {dtype} gc={gc} nrhs={nrhs} "
                               f"tz_offset={tz}: max abs err vs plain "
-                              f"{err:.3e}, vs B2 {err2:.3e} > "
-                              f"{ATOL[dtype]:g}")
-            print(f"B3 vs plain and vs B2: {sname} {dtype}: ok (worst so "
-                  f"far {worst[dtype]:.3e})", flush=True)
-    # One wider ring: the slots rotate differently, the result must not.
+                              f"{err:.3e} (atol {ATOL[dtype]:g}), vs B2 "
+                              f"{err2:.3e} (must be bit for bit)")
+            print(f"B3 vs plain and vs B2: {sname} {dtype}: ok, equal to "
+                  f"B2 bit for bit (worst vs plain so far "
+                  f"{worst[dtype]:.3e})", flush=True)
+    # Other rings than the default's: the slots rotate differently and
+    # the producers run ahead less far; the result must not change.
     gauges, spinor = fields(CHECK_SHAPES["wilson-16x16x16x16"], "f32",
                             device, seed=16)
     u_e, u_o = gauges[18]
     psi = spinor(4)
-    got = ws.dhat_planar_fused_stream(u_e, u_o, psi, KAPPA, window=5)
-    want = ref.dhat_planar_stream_ref(u_e, u_o, psi, KAPPA, window=5)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    worst["f32"] = max(worst["f32"], err)
-    cases += 1
-    check(err <= ATOL["f32"], f"B3 window=5: max abs err {err:.3e}")
-    print(f"B3: {cases} cases (window=5 included), max abs err f32 "
+    want = ref.dhat_planar_stream_ref(u_e, u_o, psi, KAPPA)
+    b2 = ws.dhat_planar_fused(u_e, u_o, psi, KAPPA)
+    for window in (4, 5):
+        got = ws.dhat_planar_fused_stream(u_e, u_o, psi, KAPPA,
+                                          window=window)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        worst["f32"] = max(worst["f32"], err)
+        cases += 1
+        check(err <= ATOL["f32"] and torch.equal(got, b2),
+              f"B3 window={window}: max abs err {err:.3e}, equal to B2: "
+              f"{torch.equal(got, b2)}")
+    print(f"B3: {cases} cases (windows 4 and 5 included), max abs err f32 "
           f"{worst['f32']:.3e} (atol 5e-5), f64 {worst['f64']:.3e} (atol "
           "1e-10)")
     return worst
@@ -364,6 +420,12 @@ def phase_slice2():
     auto = runs["auto"]
     check(auto["backend"] == "cuda_fused",
           f"auto resolved to {auto['backend']!r}, not 'cuda_fused'")
+    other = ({"dhat_planar_fused", "dhat_planar_fused_stream"}
+             - {PROPAGATOR_AUTO_KERNEL}).pop()
+    check(auto["launches"][PROPAGATOR_AUTO_KERNEL]
+          >= 2 * sum(auto["iterations"]) and auto["launches"][other] == 0,
+          f"auto launched {auto['launches']}, expected every Dhat through "
+          f"{PROPAGATOR_AUTO_KERNEL}")
     diff = max(float((a - b).abs().max()) for a, b in
                zip(stream["solutions"], auto["solutions"]))
     print(f"slice2: auto resolved to {auto['backend']}; iterations per "
@@ -423,6 +485,52 @@ def phase_block_of_one(device, shape=None, n_solves=6):
     return steady
 
 
+def phase_propagator_times(device, n_solves=5):
+    """Steady time of the 12-source propagator solve (PROPAGATOR's
+    lattice, cgnr, tol 1e-6) under ``cuda_fused`` with policy ``auto``
+    (B3 for a block since the redesign) and under ``cuda_fused_stream``
+    (B3 pinned), one session
+    each, solves alternating: median wall time after the first solve of
+    each, ending in a synchronise."""
+    import torch
+
+    from repro_torch import api
+    from repro_torch.core import evenodd, su3
+    lattice, nrhs, _ = PROPAGATOR
+    shape = CHECK_SHAPES[lattice]
+    gen = torch.Generator().manual_seed(1)
+    U = su3.random_gauge(gen, shape, device=device)
+    U_e, U_o = evenodd.pack_gauge(U)
+    eta = torch.complex(torch.randn((nrhs,) + shape + (4, 3), generator=gen),
+                        torch.randn((nrhs,) + shape + (4, 3), generator=gen))
+    packed = [evenodd.pack(c) for c in eta.to(device)]
+    ee = torch.stack([e for e, _ in packed])
+    eo = torch.stack([o for _, o in packed])
+    sessions = {
+        name: api.SolveSession(
+            api.WilsonMatrix.bind(U_e, U_o, KAPPA, backend=name),
+            api.SolveSpec(method="cgnr", tol=1e-6, nrhs=nrhs))
+        for name in ("cuda_fused", "cuda_fused_stream")}
+    times = {k: [] for k in sessions}
+    iters = {}
+    for _ in range(n_solves):
+        for name, session in sessions.items():
+            t0 = time.perf_counter()
+            _, _, res = session.solve(ee, eo)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+            iters[name] = [int(i) for i in res.iterations]
+            check(bool(res.converged.all()),
+                  f"propagator solve under {name} did not converge")
+    steady = {k: statistics.median(t[1:]) for k, t in times.items()}
+    print(f"propagator: {lattice} x {nrhs} sources, cgnr tol 1e-6, steady "
+          f"solve (median of {n_solves - 1} after the first) cuda_fused "
+          f"(auto) {steady['cuda_fused'] * 1e3:.2f} ms, cuda_fused_stream "
+          f"{steady['cuda_fused_stream'] * 1e3:.2f} ms; iterations per "
+          f"column {iters}", flush=True)
+    return steady
+
+
 def _events(n):
     import torch
     return ([torch.cuda.Event(enable_timing=True) for _ in range(n)],
@@ -476,12 +584,14 @@ def copy_bandwidth(device):
     return 2 * 4 * n / (ms * 1e-3)
 
 
-def phase_times(device, paths):
+def phase_times(device, paths, parent=None):
     """Kernel times; ``paths`` maps ``(lattice, nrhs, dtype, gc)`` to the
-    kernel launches of the main paths driven at that shape."""
+    kernel launches of the main paths driven at that shape; ``parent``
+    (:func:`parent_times` of another run) is printed beside every policy
+    point."""
     import torch
 
-    from repro_torch.kernels import ops, ref, wilson_stencil as ws
+    from repro_torch.kernels import geometry, ops, ref, wilson_stencil as ws
     rows = {}
     for lattice, _, _ in MAIN_LATTICES:
         T, Z, Y, X = CHECK_SHAPES[lattice]
@@ -544,11 +654,10 @@ def phase_times(device, paths):
             "B3": lambda: ws.dhat_planar_fused_stream(u_e, u_o, psi,
                                                       KAPPA),
         }
-        order = ["B2", "B3", "B3", "B2"]
         if lattice == BIG_LATTICE[0] and (nrhs, dtype, gc) == (1, "f32", 18):
             cands["two-launch"] = lambda: ops.apply_dhat_planar(
                 u_e, u_o, psi, KAPPA)
-            order = ["B2", "B3", "two-launch", "two-launch", "B3", "B2"]
+        order = list(cands) + list(reversed(cands))
         ref_out = cands["B2"]()
         errs = {k: float((f() - ref_out).abs().max())
                 for k, f in cands.items() if k != "B2"}
@@ -576,11 +685,16 @@ def phase_times(device, paths):
             "B3": call_ms(lambda: ref.dhat_planar_stream_ref(
                 u_e, u_o, psi, KAPPA), 3, warmup=1)}
         scratch = itemsize * psi.numel()
+        ring = ws.stream_ring_bytes(psi.shape, itemsize, ws.STREAM_RING_ROWS)
         launched = paths.get((lattice, nrhs, dtype, gc), {})
+        geom = geometry.tile_geometry(Z, Y, X // 2, nrhs, itemsize)
         print(f"time: {lattice} {dtype} gc={gc} nrhs={nrhs} Dhat (auto "
-              f"takes {ops.auto_policy(psi.shape, itemsize, gc)}; B2 scratch "
-              f"{scratch / 1e6:.1f} MB, B3 ring "
-              f"{model['vmem_ring_bytes'] / 1e6:.2f} MB), device us in run "
+              f"takes {ops.auto_policy(psi.shape, itemsize, gc)}; tiles D="
+              f"{geom.D} G={geom.G}x{geom.groups} S={geom.S}, "
+              f"{geom.threads} threads and {geom.smem} B shared memory a "
+              f"block; B2 scratch {scratch / 1e6:.1f} MB, B3 ring "
+              f"{ring / 1e6:.2f} MB of {ws.STREAM_RING_ROWS} rows), device "
+              f"us in run "
               f"order " + ", ".join(f"{k} {t * 1e3:.1f}" for k, t in times)
               + f"; bound {bound * 1e3:.1f} us ({nbytes} B at 3.35 TB/s, "
               f"{'bytes' if t_bytes >= t_ops else 'operations'}); "
@@ -596,6 +710,15 @@ def phase_times(device, paths):
               flush=True)
         med = {k: statistics.median(t for label, t in times if label == k)
                for k in cands}
+        if parent:
+            old = parent.get((lattice, nrhs, dtype, gc), {})
+            print(f"parent vs new: {lattice} {dtype} gc={gc} nrhs={nrhs}: "
+                  + ", ".join(f"{k} {old[k]:.1f} -> {med[k] * 1e3:.1f} us "
+                              f"({med[k] * 1e3 / old[k]:.2f}x)"
+                              if k in old else f"{k} no parent reading"
+                              for k in ("B2", "B3")), flush=True)
+        check(errs["B3"] == 0.0, f"B3 differs from B2 at {lattice} "
+                                 f"nrhs={nrhs} {dtype} gc={gc}")
         rows[(lattice, nrhs, dtype, gc)] = {
             "times": times, "ms": med, "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -606,7 +729,14 @@ def phase_times(device, paths):
     return rows
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="Smoke test of the PyTorch/CUDA port on one GPU.")
+    ap.add_argument("--parent-log", metavar="FILE", default=None,
+                    help="the output of another run of chip_smoke.py (the "
+                         "parent commit's): its B2 and B3 times are printed "
+                         "beside this run's at every policy point")
+    args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print(f"error: {SRC / 'repro_torch'} not found; run chip_smoke.py "
               "from a checkout of the repository", file=sys.stderr)
@@ -631,6 +761,7 @@ def main():
           f"{torch.cuda.device_count()} device(s)", flush=True)
 
     t_start = time.time()
+    parent = parent_times(args.parent_log) if args.parent_log else None
     phase_build()
     worst = {"hop_block_planar": phase_b1(device),
              "dhat_planar_fused": phase_b2(device),
@@ -638,6 +769,7 @@ def main():
     runs = phase_slice()
     runs2 = phase_slice2()
     phase_block_of_one(device)
+    phase_propagator_times(device)
     copy_bps = copy_bandwidth(device)
     print(f"copy bandwidth: {copy_bps / 1e9:.0f} GB/s (device-to-device"
           f" copy, read + write; the bounds use the 3.35 TB/s peak)",
@@ -649,7 +781,7 @@ def main():
     paths[(lattice, nrhs, "f32", 18)] = {
         k: sum(run["launches"][k] for run in runs2.values())
         for k in runs2["auto"]["launches"]}
-    rows = phase_times(device, paths)
+    rows = phase_times(device, paths, parent)
 
     main_lattice = MAIN_LATTICES[0][0]
     sources = {

@@ -19,11 +19,12 @@ import time
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["build_all", "load", "build_dir", "KERNEL_SOURCES"]
+__all__ = ["build_all", "load", "build_dir", "KERNEL_SOURCES", "NVCC_FLAGS",
+           "ARGTYPES"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _REPO_ROOT = Path(__file__).resolve().parents[3]
-_HEADERS = ("wilson_plane.cuh",)
+_HEADERS = ("wilson_plane.cuh", "wilson_site_tile.cuh")
 
 #: library name -> its source file under csrc/
 KERNEL_SOURCES = {
@@ -38,19 +39,25 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
-_ARGTYPES = {
+#: entry point -> ctypes argtypes of every kernel library's C interface
+ARGTYPES = {
     # u_out, u_in, src, psi0, out, T, Z, Y, Xh, nrhs, gc, itemsize,
     # out_parity, tz_par, coeff, device, stream
     "wilson_hop_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                           _I, _I, _D, _I, _P],
     # u_e, u_o, psi, tmp, out, T, Z, Y, Xh, nrhs, gc, itemsize, tz_par,
-    # kappa2, device, stream
+    # kappa2, D, G, S, groups, tiles, threads, grid, smem, device, stream
     "wilson_dhat_fused_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                 _I, _I, _D, _I, _P],
-    # u_e, u_o, psi, ring, out, T, Z, Y, Xh, nrhs, window, gc, itemsize,
-    # tz_par, kappa2, device, stream
-    "wilson_dhat_stream_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _D, _I, _P],
+                                 _I, _I, _D, *[_I] * 8, _I, _P],
+    # u_e, u_o, psi, ring, out, flags, T, Z, Y, Xh, nrhs, window, gc,
+    # itemsize, tz_par, kappa2, D, G, S, groups, tiles, threads, grid,
+    # smem, device, stream
+    "wilson_dhat_stream_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _D, *[_I] * 8, _I,
+                                  _P],
+    # gc, itemsize, D, threads, smem, device, int* blocks per SM
+    "wilson_dhat_fused_occupancy": [_I] * 6 + [ctypes.POINTER(_I)],
+    "wilson_dhat_stream_occupancy": [_I] * 6 + [ctypes.POINTER(_I)],
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -125,7 +132,7 @@ def build_all(verbose: bool = False) -> Dict[str, dict]:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded kernel library ``name`` (built first if needed), with
-    ``argtypes``/``restype`` declared for its launcher."""
+    ``argtypes``/``restype`` declared for its entry points."""
     lib = _loaded.get(name)
     if lib is not None:
         return lib
@@ -133,9 +140,10 @@ def load(name: str) -> ctypes.CDLL:
     if not path.exists():
         build_all()
     lib = ctypes.CDLL(str(path))
-    fn_name = f"{name}_launch"
-    fn = getattr(lib, fn_name)
-    fn.argtypes = _ARGTYPES[fn_name]
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in ARGTYPES.items():
+        if fn_name.startswith(f"{name}_"):
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     _loaded[name] = lib
     return lib

@@ -1,16 +1,16 @@
-// Device code shared by the hop-block kernel (wilson_hop.cu), the fused
-// Dhat kernel (wilson_dhat_fused.cu) and the streaming fused Dhat kernel
-// (wilson_dhat_stream.cu): half-spinor projection, the SU(3) multiply,
-// reconstruction, in-register link expansion, and one hopping block
-// evaluated at one site for a block of right-hand sides.
+// Device code of the hop-block kernel (wilson_hop.cu), part of which the
+// fused Dhat kernels share through wilson_site_tile.cuh: half-spinor
+// projection, the SU(3) multiply, reconstruction, link expansion, and
+// (for the hop block) one hopping block evaluated at one site for a block
+// of right-hand sides.
 //
 // Layouts (planar, identical to the reference package):
 //   spinor  [nrhs][T][Z][24][Y][Xh], component c = (spin*3 + color)*2 + reim
 //   gauge   [4][T][Z][GC][Y][Xh],    component c = (row*3 + col)*2 + reim
 //                                    (GC = 18 full, 12 two_row, 8 minimal)
-// One thread owns one output site (t, z, y, xh).  Consecutive threads take
-// consecutive xh, so every component-plane load of a warp is one contiguous
-// run of addresses.
+// In the hop block one thread owns one output site (t, z, y, xh).
+// Consecutive threads take consecutive xh, so every component-plane load
+// of a warp is one contiguous run of addresses.
 //
 // The arithmetic (operation order included) is the one of the plain version
 // in kernels/ref.py, itself the reference's _proj/_su3_mul/_recon_acc.
@@ -18,7 +18,6 @@
 
 #include <cuda_runtime.h>
 
-#include <atomic>
 #include <cstdint>
 
 namespace wilson {
@@ -316,8 +315,7 @@ __device__ __forceinline__ int64_t row_elems(const Geom& g) {
 // element (rhs r0, z=0, c=0, y=0, xh=0) of each row): src_c at t, src_tf
 // at t+1 and src_tb at t-1; consecutive right-hand sides of a row lie
 // rhs_stride elements apart.  A full-lattice source passes its rows
-// t, (t+1) % T and (t-1) % T with rhs_stride = T*Z*24*Y*Xh; the streaming
-// kernel passes slots of its row ring with the ring's stride.  The links
+// t, (t+1) % T and (t-1) % T with rhs_stride = T*Z*24*Y*Xh.  The links
 // and the row parity are indexed by the logical t.
 template <typename R, int GC, int NB>
 __device__ __forceinline__ void hop_site(
@@ -462,24 +460,5 @@ class DeviceGuard {
   bool switched_ = false;
   cudaError_t err_ = cudaSuccess;
 };
-
-// A positive integer fact of one device that never changes while the
-// process runs (an SM count, a kernel's occupancy), looked up once per
-// device: `cache` is a zero-initialised static array of kMaxDevices.
-constexpr int kMaxDevices = 64;
-
-template <typename Query>
-cudaError_t cached_per_device(std::atomic<int>* cache, int device, int* value,
-                              Query query) {
-  const bool slot = device >= 0 && device < kMaxDevices;
-  if (slot) {
-    *value = cache[device].load(std::memory_order_relaxed);
-    if (*value > 0) return cudaSuccess;
-  }
-  cudaError_t err = query(value);
-  if (err == cudaSuccess && slot && *value > 0)
-    cache[device].store(*value, std::memory_order_relaxed);
-  return err;
-}
 
 }  // namespace wilson

@@ -8,7 +8,7 @@ backends.  Its policy picks the path:
 * ``"unfused"`` — two B1 launches, the second carrying the ``-kappa^2``
   axpy (the intermediate makes a round trip through device memory);
 * ``"stream"`` — kernel B3, one cooperative launch whose odd
-  intermediate lives in a ring of 4 t-rows (a working set independent
+  intermediate lives in a ring of 8 t-rows (a working set independent
   of T);
 * ``"auto"`` — ``"stream"`` or ``"resident"`` by the shape, as
   measured on the H100 (:func:`auto_policy`, the rule below).
@@ -24,42 +24,42 @@ from .wilson_stencil import (dhat_planar_fused, dhat_planar_fused_stream,
 
 __all__ = ["hop_block", "apply_dhat_planar", "apply_dhat_planar_fused",
            "apply_dhat_planar_stream", "apply_dhat_planar_any",
-           "auto_policy", "DHAT_POLICIES", "STREAM_MIN_LINK_BYTES"]
+           "auto_policy", "DHAT_POLICIES", "STREAM_MIN_ROW_SITES"]
 
 EVEN, ODD = 0, 1
 
 DHAT_POLICIES = ("auto", "resident", "stream", "unfused")
 
-# The H100 rule for "auto", set by chip_smoke.py's B3-against-B2 device
-# times (PERF.md section 6; NVIDIA H100 80GB HBM3 at 700 W).  B2 reads
-# the links once per pass; when both parities of them well exceed the
-# 50 MiB L2, its second pass fetches them from HBM again, while B3 reads
-# each link row twice within two steps and finds it in the L2.  With one
-# source, where the links dominate the bytes, B2 was faster up to 67.1 MB
-# of links (16^4, 18.9 MB: 57 against 130 us; wilson-64x16x16x8 with
-# 8-plane f32 links, 33.6 MB: 156 against 241 us; 12-plane f32, 50.3 MB:
-# 157 against 174 us; 8-plane f64, 67.1 MB: 292 against 372 us) and B3
-# from 75.5 MB up (wilson-64x16x16x8 full f32 links: 174 against 188 us;
-# 12-plane f64, 100.7 MB: 259 against 451 us; full f64, 151 MB: 367
-# against 527 us; wilson-64x32x32x16 with every link form in f32 and
-# f64, 268-1208 MB: e.g. 813 against 1448 us).  The threshold lies
-# between the two.  With 2, 4 or 12 sources each link load already
-# serves the block and B2 was faster, except at wilson-64x32x32x16 with
-# 2 sources (B3 1406 against 1756 us), which "auto" leaves to B2.  The
-# two-launch path never won, so "auto" never picks "unfused".
-STREAM_MIN_LINK_BYTES = 72 * 10**6
+# The H100 rule for "auto", set by chip_smoke.py's device times of B2 and
+# B3 at its 20 policy points (PERF.md section 6, run 5; NVIDIA H100 80GB
+# HBM3 at 700 W):
+# - f64 (one source at wilson-64x16x16x8 and wilson-64x32x32x16, each link
+#   form): B2 at five points, even at the sixth (wilson-64x16x16x8, full
+#   links: 197.6 against 197.5 us);
+# - f32, a block of sources (full links: 12 at 16^4, 2, 4 and 12 at both
+#   large lattices): B3 at every point (16^4 x 12: 172 against 190 us);
+#   blocks with compressed links were not timed and stay on B2;
+# - f32, one source: B2 on the 2048-site t-rows of 16^4 (24 against 53
+#   us), B3 on the 8192- and 32768-site rows of wilson-64x16x16x8 and
+#   wilson-64x32x32x16 with every link form (e.g. 109 against 122 us, and
+#   713 against 741 us with 12-plane links).  B3 keeps a few rows in
+#   flight, so it needs long rows to fill the card.
+# The two-launch path never won, so "auto" never picks "unfused".
+STREAM_MIN_ROW_SITES = 4096
 
 
 def auto_policy(psi_e_p_shape, itemsize: int, gauge_comps: int) -> str:
     """The ``Dhat`` path ``"auto"`` takes for a planar spinor shape
     ``([nrhs,] T, Z, 24, Y, Xh)`` of ``itemsize``-byte reals and links
-    of ``gauge_comps`` planes."""
-    nrhs = psi_e_p_shape[0] if len(psi_e_p_shape) == 6 else 1
-    T, Z, _, Y, Xh = psi_e_p_shape[-5:]
-    link_bytes = 2 * 4 * gauge_comps * T * Z * Y * Xh * itemsize
-    if nrhs == 1 and link_bytes > STREAM_MIN_LINK_BYTES:
-        return "stream"
-    return "resident"
+    of ``gauge_comps`` planes: B3 (``"stream"``) in f32 for a block of
+    sources with full links, and for one source on t-rows of at least
+    ``STREAM_MIN_ROW_SITES`` sites; B2 (``"resident"``) otherwise."""
+    if itemsize != 4:
+        return "resident"
+    _, Z, _, Y, Xh = psi_e_p_shape[-5:]
+    if len(psi_e_p_shape) == 6 and psi_e_p_shape[0] > 1:
+        return "stream" if gauge_comps == 18 else "resident"
+    return "stream" if Z * Y * Xh >= STREAM_MIN_ROW_SITES else "resident"
 
 
 def hop_block(u_out_p, u_in_p, src_p, *, out_parity: int,

@@ -11,6 +11,9 @@
   launch whose odd intermediate lives in a ring of ``window`` t-rows;
   port of the reference's ``dhat_planar_fused_stream`` Pallas kernel.
 
+B2 and B3 share the tile routine of ``csrc/wilson_site_tile.cuh``; their
+launch geometry comes from :mod:`repro_torch.kernels.geometry`.
+
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with ``torch.empty``, launches on the current CUDA
 stream and raises if the launcher reports an error.  A CPU tensor runs
@@ -21,20 +24,23 @@ kernel launches per wrapper (plain-version calls are not counted).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from . import build, ref
+from .geometry import (TileGeometry, check_geometry, stream_flag_words,
+                       tile_geometry)
 from .layout import (GAUGE_COMPS, GAUGE_COMPS_MINIMAL, GAUGE_COMPS_TWO_ROW,
                      SPINOR_COMPS)
 
 __all__ = ["hop_block_planar", "dhat_planar_fused",
            "dhat_planar_fused_stream", "hop_traffic_model",
            "dhat_stream_traffic_model", "stream_ring_bytes",
-           "STREAM_WINDOW_ROWS", "HOP_FLOPS_PER_SITE", "LAUNCHES",
-           "reset_launch_counts"]
+           "STREAM_WINDOW_ROWS", "STREAM_RING_ROWS", "HOP_FLOPS_PER_SITE",
+           "LAUNCHES", "reset_launch_counts", "stream_flags"]
 
 # Flops per lattice site of one hopping block application, QXS convention.
 HOP_FLOPS_PER_SITE = 1320
@@ -56,8 +62,15 @@ LAUNCHES = {"hop_block_planar": 0, "dhat_planar_fused": 0,
 
 # Ring rows of odd-intermediate t-planes of the streaming kernel B3: 3
 # live rows cover the +-t reach of the second hopping block, +1 is the
-# row being produced while the previous three are consumed.
+# row being produced while the previous three are consumed.  The least
+# window; the reference's models use it.
 STREAM_WINDOW_ROWS = 4
+# The kernel's ring by default: with 8 rows a slot is written again 5
+# steps after its last reader, so producers seldom wait.  Measured on
+# the H100 (tools/sweep_dhat_tiles.py, PERF.md): about as fast as 4 rows
+# or faster at every point timed, 2x at wilson-16x16x16x16 with one
+# source.
+STREAM_RING_ROWS = 8
 
 
 def reset_launch_counts() -> None:
@@ -227,29 +240,71 @@ def hop_block_planar(u_out_p: torch.Tensor, u_in_p: torch.Tensor,
     return out
 
 
+def _grid_blocks(lib_name: str, geom: TileGeometry, gc: int,
+                 itemsize: int, tasks: int, dev: torch.device) -> int:
+    """Blocks of a cooperative launch of B2 or B3: as many as fit on the
+    card at once (occupancy x SM count), at most one per task.  Raises
+    if not one block fits an SM."""
+    per_sm = _blocks_per_sm(lib_name, gc, itemsize, geom.D, geom.threads,
+                            geom.smem, dev.index or 0)
+    if per_sm < 1:
+        raise RuntimeError(
+            f"{lib_name}: no block of {geom.threads} threads and "
+            f"{geom.smem} B of shared memory fits an SM")
+    return min(tasks, per_sm * _sm_count(dev.index or 0))
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(lib_name: str, gc: int, itemsize: int, dgroups: int,
+                   threads: int, smem: int, device: int) -> int:
+    per_sm = ctypes.c_int(0)
+    rc = getattr(build.load(lib_name), f"{lib_name}_occupancy")(
+        gc, itemsize, dgroups, threads, smem, device, ctypes.byref(per_sm))
+    if rc != 0:
+        raise RuntimeError(f"{lib_name}_occupancy failed: CUDA error {rc}")
+    return per_sm.value
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _geometry_args(geom: TileGeometry, grid: int):
+    return (geom.D, geom.G, geom.S, geom.groups, geom.tiles, geom.threads,
+            grid, geom.smem)
+
+
 def dhat_planar_fused(u_e_p: torch.Tensor, u_o_p: torch.Tensor,
                       psi_e_p: torch.Tensor, kappa: float, *,
                       tz_offset: Tuple[int, int] = (0, 0)) -> torch.Tensor:
     """``(1 - kappa^2 H_eo H_oe) psi_e`` as one cooperative launch (B2).
 
     Pass 0 writes ``H_oe psi_e`` to a scratch spinor allocated here; a
-    grid-wide barrier; pass 1 applies ``H_eo`` and the axpy.  Shapes and
-    dtypes as :func:`hop_block_planar`; periodic single shard.
+    grid-wide barrier; pass 1 applies ``H_eo`` and the axpy.  Each block
+    handles tiles of sites x a group of sources
+    (:func:`geometry.tile_geometry`).  Shapes and dtypes as
+    :func:`hop_block_planar`; periodic single shard.
     """
     T, Z, Y, Xh, nrhs, gc = _check_fields((u_e_p, u_o_p), (psi_e_p,),
                                           what="dhat_planar_fused")
     if psi_e_p.device.type == "cpu":
         return ref.dhat_planar_ref(u_e_p, u_o_p, psi_e_p, kappa,
                                    tz_offset=tz_offset)
+    itemsize = psi_e_p.element_size()
+    geom = tile_geometry(Z, Y, Xh, nrhs, itemsize)
+    check_geometry(geom, itemsize)
+    dev = psi_e_p.device
+    grid = _grid_blocks("wilson_dhat_fused", geom, gc, itemsize,
+                        T * geom.tasks_per_row, dev)
     tmp = torch.empty_like(psi_e_p)
     out = torch.empty_like(psi_e_p)
     lib = build.load("wilson_dhat_fused")
-    dev = psi_e_p.device
     rc = lib.wilson_dhat_fused_launch(
         u_e_p.data_ptr(), u_o_p.data_ptr(), psi_e_p.data_ptr(),
-        tmp.data_ptr(), out.data_ptr(), T, Z, Y, Xh, nrhs, gc,
-        psi_e_p.element_size(), (tz_offset[0] + tz_offset[1]) & 1,
-        float(kappa) ** 2, dev.index or 0, _stream(dev))
+        tmp.data_ptr(), out.data_ptr(), T, Z, Y, Xh, nrhs, gc, itemsize,
+        (tz_offset[0] + tz_offset[1]) & 1, float(kappa) ** 2,
+        *_geometry_args(geom, grid), dev.index or 0, _stream(dev))
     if rc != 0:
         raise RuntimeError(
             f"wilson_dhat_fused_launch failed: CUDA error {rc}")
@@ -257,18 +312,38 @@ def dhat_planar_fused(u_e_p: torch.Tensor, u_o_p: torch.Tensor,
     return out
 
 
+# B3's counters, one buffer per (device, stream): launches on one stream
+# run in order and reuse it without a reset (each launch leaves it zeroed);
+# launches on two streams may overlap and must not share one.
+_STREAM_FLAGS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def stream_flags(dev: torch.device, words: int) -> torch.Tensor:
+    """The zeroed counter buffer of B3 for the current stream of ``dev``,
+    at least ``words`` 64-bit words (a larger one replaces a smaller)."""
+    key = (dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _STREAM_FLAGS.get(key)
+    if buf is None or buf.numel() < words:
+        buf = torch.zeros(words, dtype=torch.int64, device=dev)
+        _STREAM_FLAGS[key] = buf
+    return buf
+
+
 def dhat_planar_fused_stream(u_e_p: torch.Tensor, u_o_p: torch.Tensor,
                              psi_e_p: torch.Tensor, kappa: float, *,
                              tz_offset: Tuple[int, int] = (0, 0),
-                             window: int = STREAM_WINDOW_ROWS
+                             window: int = STREAM_RING_ROWS
                              ) -> torch.Tensor:
     """``(1 - kappa^2 H_eo H_oe) psi_e`` as one cooperative launch whose
     odd intermediate lives in a ring of ``window`` t-rows (B3).
 
     The ring, ``(nrhs, window, Z, 24, Y, Xh)``, is allocated here; its
-    size does not depend on T.  Shapes and dtypes as
-    :func:`hop_block_planar`; periodic single shard.  ``window < 4``
-    raises ``ValueError``.
+    size does not depend on T.  Tasks (a tile of a t-row x a group of
+    sources, produce or consume) order themselves by per-row counters
+    in device memory, kept per stream (:func:`stream_flags`), not by grid
+    barriers; tiles as for :func:`dhat_planar_fused`.  Shapes and
+    dtypes as :func:`hop_block_planar`; periodic single shard.
+    ``window < 4`` raises ``ValueError``.
     """
     if window < STREAM_WINDOW_ROWS:
         raise ValueError(
@@ -280,16 +355,24 @@ def dhat_planar_fused_stream(u_e_p: torch.Tensor, u_o_p: torch.Tensor,
         return ref.dhat_planar_stream_ref(u_e_p, u_o_p, psi_e_p, kappa,
                                           tz_offset=tz_offset,
                                           window=window)
+    itemsize = psi_e_p.element_size()
+    geom = tile_geometry(Z, Y, Xh, nrhs, itemsize)
+    check_geometry(geom, itemsize)
+    dev = psi_e_p.device
+    # Tasks: T+2 produce and T consume steps, each over a row's tiles.
+    grid = _grid_blocks("wilson_dhat_stream", geom, gc, itemsize,
+                        (2 * T + 2) * geom.tasks_per_row, dev)
+    flags = stream_flags(dev, stream_flag_words(geom, window, Z))
     ring = torch.empty((nrhs, window, Z, SPINOR_COMPS, Y, Xh),
-                       dtype=psi_e_p.dtype, device=psi_e_p.device)
+                       dtype=psi_e_p.dtype, device=dev)
     out = torch.empty_like(psi_e_p)
     lib = build.load("wilson_dhat_stream")
-    dev = psi_e_p.device
     rc = lib.wilson_dhat_stream_launch(
         u_e_p.data_ptr(), u_o_p.data_ptr(), psi_e_p.data_ptr(),
-        ring.data_ptr(), out.data_ptr(), T, Z, Y, Xh, nrhs, int(window),
-        gc, psi_e_p.element_size(), (tz_offset[0] + tz_offset[1]) & 1,
-        float(kappa) ** 2, dev.index or 0, _stream(dev))
+        ring.data_ptr(), out.data_ptr(), flags.data_ptr(), T, Z, Y, Xh,
+        nrhs, int(window), gc, itemsize, (tz_offset[0] + tz_offset[1]) & 1,
+        float(kappa) ** 2, *_geometry_args(geom, grid), dev.index or 0,
+        _stream(dev))
     if rc != 0:
         raise RuntimeError(
             f"wilson_dhat_stream_launch failed: CUDA error {rc}")

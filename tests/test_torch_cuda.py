@@ -1,7 +1,8 @@
 """CUDA kernels B1, B2 and B3 against their plain versions, and the
 batched solve through B3, on the card.
 
-These tests need a GPU and skip without one; they import neither JAX
+These tests need a GPU (marker ``cuda``) and skip without one, deciding
+in the ``cuda`` fixture; they import neither JAX
 nor the reference package, so on a machine without JAX they run with
 
     PYTHONPATH=src python -m pytest --noconftest -p no:cacheprovider \
@@ -19,6 +20,8 @@ from repro_torch.kernels import layout, ops, ref, wilson_stencil as ws
 
 ATOL = {torch.float32: 5e-5, torch.float64: 1e-10}
 KAPPA = 0.13
+
+pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
@@ -141,3 +144,57 @@ def test_stream_batched_solve_matches_torch_ref(cuda):
     assert launches["dhat_planar_fused"] == 0
     torch.testing.assert_close(xe, ye, rtol=0, atol=1e-4)
     torch.testing.assert_close(xo, yo, rtol=0, atol=1e-4)
+
+
+# Ragged shapes: Y*Xh and Z are not multiples of the kernels' tiles, and
+# T = 1 wraps every t-neighbour onto its own row.
+RAGGED = [(4, 5, 3, 10), (2, 7, 5, 6), (1, 4, 4, 8)]
+
+
+@pytest.mark.parametrize("shape", RAGGED)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", ["none", "two_row", "minimal"])
+def test_fused_kernels_on_ragged_tiles_and_odd_source_counts(cuda, shape,
+                                                             dtype, mode):
+    """B2 and B3 against the plain version with 1 source (two direction
+    groups per site in f64), 3 and 5 (uneven groups of threads) on ragged
+    tiles; B3 equals B2 bit for bit."""
+    u_e, u_o, _ = _fields(cuda, dtype, mode, shape=shape)
+    T, Z, Y, Xh = u_e.shape[1], u_e.shape[2], u_e.shape[4], u_e.shape[5]
+    gen = torch.Generator().manual_seed(5)
+    for nrhs in (1, 3, 5):
+        lead = (nrhs,) if nrhs > 1 else ()
+        src = torch.randn(lead + (T, Z, 24, Y, Xh), generator=gen,
+                          dtype=dtype).to(cuda)
+        b2 = ws.dhat_planar_fused(u_e, u_o, src, KAPPA)
+        b3 = ws.dhat_planar_fused_stream(u_e, u_o, src, KAPPA)
+        torch.testing.assert_close(b2, ref.dhat_planar_ref(u_e, u_o, src,
+                                                           KAPPA),
+                                   rtol=0, atol=ATOL[dtype])
+        assert torch.equal(b3, b2)
+
+
+def test_stream_flags_need_no_reset_and_streams_do_not_share(cuda):
+    """B3 twice in a row on one stream without a reset of its flags,
+    then interleaved on two streams: every result equals B2's, so no
+    launch read a stale flag of another."""
+    u_e, u_o, _ = _fields(cuda, torch.float32, "none",
+                          shape=(8, 8, 8, 16))
+    gen = torch.Generator().manual_seed(6)
+    src = [torch.randn((12, 8, 8, 24, 8, 8), generator=gen).to(cuda)
+           for _ in range(2)]
+    want = [ws.dhat_planar_fused(u_e, u_o, s, KAPPA) for s in src]
+    first = ws.dhat_planar_fused_stream(u_e, u_o, src[0], KAPPA)
+    second = ws.dhat_planar_fused_stream(u_e, u_o, src[1], KAPPA)
+    assert torch.equal(first, want[0]) and torch.equal(second, want[1])
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    torch.cuda.synchronize()
+    got = []
+    for _ in range(3):
+        for i, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                got.append((i, ws.dhat_planar_fused_stream(u_e, u_o, src[i],
+                                                           KAPPA)))
+    torch.cuda.synchronize()
+    for i, out in got:
+        assert torch.equal(out, want[i])

@@ -167,34 +167,32 @@ F32, F64 = torch.float32, torch.float64
 
 
 def test_auto_policy_is_resident_at_the_slice_shapes(monkeypatch):
-    """``auto`` takes the one-launch B2 path where B2 measured faster: at
-    16^4 (its links fit the L2), for a block of sources at
-    wilson-64x16x16x8, and for one source there with 12- or 8-plane f32
-    links (50.3 and 33.5 MB, inside the L2) and 8-plane f64 links
-    (67.1 MB, just past it); ``unfused`` takes the two-launch path."""
+    """``auto`` takes the one-launch B2 path where B2 measured faster:
+    one f32 source at 16^4 (as a plain spinor and as a block of one),
+    and one f64 source at wilson-64x16x16x8 and wilson-64x32x32x16 with
+    each link form (and so at 16^4 too); ``unfused`` takes the
+    two-launch path."""
     cases = [((16, 16, 24, 16, 8), dtype, 18) for dtype in (F32, F64)]
-    cases += [((12, 16, 16, 24, 16, 8), F32, 18),
-              ((2, 16, 16, 24, 16, 32), F32, 18),
-              ((12, 16, 16, 24, 16, 32), F64, 18),
-              ((16, 16, 24, 16, 32), F32, 12),
-              ((16, 16, 24, 16, 32), F32, 8),
-              ((16, 16, 24, 16, 32), F64, 8)]
-    assert _policy_taken(monkeypatch, cases) == ["resident", "unfused"] * 8
+    cases += [((1, 16, 16, 24, 16, 8), F32, 18)]
+    cases += [(shape, F64, gc) for shape in ((16, 16, 24, 16, 32),
+                                             (32, 32, 24, 32, 32))
+              for gc in (18, 12, 8)]
+    assert _policy_taken(monkeypatch, cases) == ["resident", "unfused"] * 9
 
 
 def test_auto_policy_streams_single_sources_on_large_lattices(monkeypatch):
-    """``auto`` takes B3 for one source whose links exceed 72 MB, where
-    B3 measured faster: wilson-64x16x16x8 with full links (f32 and f64)
-    and 12-plane f64 links, and wilson-64x32x32x16 with every link
-    form."""
-    cases = [((16, 16, 24, 16, 32), F32, 18), ((16, 16, 24, 16, 32), F64, 18),
-             ((16, 16, 24, 16, 32), F64, 12),
-             ((1, 16, 16, 24, 16, 32), F32, 18)]
-    cases += [((32, 32, 24, 32, 32), dtype, gc)
-              for dtype in (F32, F64) for gc in (18, 12, 8)]
-    assert _policy_taken(monkeypatch, cases) == ["stream", "unfused"] * 10
-    assert ops.auto_policy((16, 16, 24, 16, 32), 4, 12) == "resident"
-    assert ops.auto_policy((4, 32, 32, 24, 32, 32), 4, 18) == "resident"
+    """``auto`` takes B3 where B3 measured faster in f32: every block of
+    sources with full links (2, 4 and 12 at wilson-64x16x16x8 and
+    wilson-64x32x32x16, 12 at 16^4), and one source on the long t-rows
+    of wilson-64x16x16x8 and wilson-64x32x32x16 with each link form."""
+    cases = [(shape, F32, gc) for shape in ((16, 16, 24, 16, 32),
+                                            (32, 32, 24, 32, 32))
+             for gc in (18, 12, 8)]
+    cases += [((1, 16, 16, 24, 16, 32), F32, 18),
+              ((12, 16, 16, 24, 16, 8), F32, 18)]
+    cases += [((n, T, Z, 24, Y, Xh), F32, 18) for n in (2, 4, 12)
+              for T, Z, Y, Xh in ((16, 16, 16, 32), (32, 32, 32, 32))]
+    assert _policy_taken(monkeypatch, cases) == ["stream", "unfused"] * 14
 
 
 def test_stream_policy_and_unknown_policy_raise():
