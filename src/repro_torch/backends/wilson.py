@@ -5,8 +5,9 @@
   ``jnp``.
 * ``cuda_hop`` — planar, ``Dhat`` as two launches of kernel B1 (policy
   ``unfused``); the role of ``pallas``.
-* ``cuda_fused`` — planar, ``Dhat`` by the auto policy (kernel B2 or
-  B3 by the shape); the role of ``pallas_fused``.
+* ``cuda_fused`` — planar, ``Dhat`` by the auto policy (two B1
+  launches, or kernel B2 for one source on short t-rows); the role of
+  ``pallas_fused``.
 * ``cuda_fused_stream`` — planar, ``Dhat`` by policy ``stream`` (kernel
   B3, the ring of t-rows) at every shape; the role of
   ``pallas_fused_stream``.
@@ -107,9 +108,9 @@ def make_cuda_hop_backend(U_e, U_o, *, dtype="f32",
 def make_cuda_fused_backend(U_e, U_o, *, dtype="f32",
                             gauge_compression="none", policy="auto",
                             name="cuda_fused", **_unused) -> WilsonOps:
-    """Planar, ``Dhat`` by ``policy`` (``auto`` picks the one-launch B2
-    or B3 kernel by the shape; see :func:`repro_torch.kernels.ops.
-    auto_policy`)."""
+    """Planar, ``Dhat`` by ``policy`` (``auto`` picks two B1 launches or
+    the one-launch B2 kernel by the shape; see :func:`repro_torch.kernels.
+    ops.auto_policy`)."""
     return _make_planar(U_e, U_o, name=name, policy=policy,
                         dtype=dtype, gauge_compression=gauge_compression)
 
@@ -139,8 +140,9 @@ register_backend(
         kernels=("hop_block_planar", "dhat_planar_fused",
                  "dhat_planar_fused_stream"),
         batched_kernels=True, fallback="cuda_hop",
-        description="Dhat as one cooperative CUDA launch (policy auto); "
-                    "two hop-block launches with policy unfused"))
+        description="Dhat by policy auto: two hop-block launches, or one "
+                    "cooperative CUDA launch for one source on short "
+                    "t-rows"))
 # cuda_fused with policy "stream" pinned (its capabilities allow no other),
 # as the reference's pallas_fused_stream.
 register_backend(

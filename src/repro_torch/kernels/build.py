@@ -41,10 +41,11 @@ _I = ctypes.c_int
 _D = ctypes.c_double
 #: entry point -> ctypes argtypes of every kernel library's C interface
 ARGTYPES = {
-    # u_out, u_in, src, psi0, out, T, Z, Y, Xh, nrhs, gc, itemsize,
-    # out_parity, tz_par, coeff, device, stream
+    # u_out, u_in, src, psi0, out, T, Z, Y, Xh, nrhs, gc, itemsize, halo,
+    # out_parity, tz_par, coeff, D, G, S, groups, tiles, threads, smem,
+    # device, stream
     "wilson_hop_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _D, _I, _P],
+                          _I, _I, _I, _D, *[_I] * 7, _I, _P],
     # u_e, u_o, psi, tmp, out, T, Z, Y, Xh, nrhs, gc, itemsize, tz_par,
     # kappa2, D, G, S, groups, tiles, threads, grid, smem, device, stream
     "wilson_dhat_fused_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

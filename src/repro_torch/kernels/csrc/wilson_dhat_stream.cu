@@ -14,7 +14,8 @@
 //
 // Here the schedule is a list of tasks, step by step, the produce tasks of
 // a step before its consume tasks; a task is one tile of sites of a t-row
-// times one group of sources (wilson_site_tile.cuh, shared with B2).  One
+// times one group of sources (wilson_site_tile.cuh, shared with B1 and
+// B2).  One
 // cooperative launch (every block resident, so spinning cannot deadlock)
 // deals the tasks out round robin; each block runs its tasks in list order.
 // Tasks order themselves by counters in device memory instead of

@@ -1,16 +1,12 @@
-// Device code of the hop-block kernel (wilson_hop.cu), part of which the
-// fused Dhat kernels share through wilson_site_tile.cuh: half-spinor
-// projection, the SU(3) multiply, reconstruction, link expansion, and
-// (for the hop block) one hopping block evaluated at one site for a block
-// of right-hand sides.
+// Device code that the three kernels share through wilson_site_tile.cuh:
+// half-spinor projection, the SU(3) multiply, reconstruction, link
+// expansion, the lattice geometry and the device guard of the C entry
+// points.
 //
 // Layouts (planar, identical to the reference package):
 //   spinor  [nrhs][T][Z][24][Y][Xh], component c = (spin*3 + color)*2 + reim
 //   gauge   [4][T][Z][GC][Y][Xh],    component c = (row*3 + col)*2 + reim
 //                                    (GC = 18 full, 12 two_row, 8 minimal)
-// In the hop block one thread owns one output site (t, z, y, xh).
-// Consecutive threads take consecutive xh, so every component-plane load
-// of a warp is one contiguous run of addresses.
 //
 // The arithmetic (operation order included) is the one of the plain version
 // in kernels/ref.py, itself the reference's _proj/_su3_mul/_recon_acc.
@@ -23,10 +19,6 @@
 namespace wilson {
 
 constexpr int kSpinorComps = 24;
-constexpr int kBlockThreads = 128;
-// Blocks per SM the kernels are compiled for: caps registers at 128 per
-// thread (65536 / (128 * 4)), so a memory-bound hop keeps 16 warps per SM.
-constexpr int kMinBlocksPerSM = 4;
 
 struct Geom {
   int T, Z, Y, Xh;
@@ -256,44 +248,6 @@ __device__ __forceinline__ void recon_acc(R acc[24], const R uh[12]) {
   }
 }
 
-// Forward and backward term of direction MU for a block of up to NB
-// right-hand sides.  Each link is loaded and expanded once and serves every
-// right-hand side of the block.
-template <int MU, typename R, int GC, int NB>
-__device__ __forceinline__ void hop_dir(
-    const R* __restrict__ u_fwd, const R* __restrict__ u_bwd,
-    const R* p_fwd, const R* p_bwd, int64_t plane, int64_t rhs_stride,
-    int nb, R acc[NB][24]) {
-  R u[18];
-  R p[24];
-  R h[12];
-  R uh[12];
-  // Forward: (1 - g_mu) U_mu(x) psi(x + mu).
-  load_link<R, GC>(u_fwd, plane, u);
-#pragma unroll
-  for (int r = 0; r < NB; ++r) {
-    if (r < nb) {
-#pragma unroll
-      for (int c = 0; c < 24; ++c) p[c] = p_fwd[r * rhs_stride + c * plane];
-      project<MU, -1>(p, h);
-      su3_mul<false>(u, h, uh);
-      recon_acc<MU, -1>(acc[r], uh);
-    }
-  }
-  // Backward: (1 + g_mu) U_mu^dag(x - mu) psi(x - mu).
-  load_link<R, GC>(u_bwd, plane, u);
-#pragma unroll
-  for (int r = 0; r < NB; ++r) {
-    if (r < nb) {
-#pragma unroll
-      for (int c = 0; c < 24; ++c) p[c] = p_bwd[r * rhs_stride + c * plane];
-      project<MU, +1>(p, h);
-      su3_mul<true>(u, h, uh);
-      recon_acc<MU, +1>(acc[r], uh);
-    }
-  }
-}
-
 // Offset of site (z, y, xh) inside one t-row [Z][24][Y][Xh] of a spinor.
 __device__ __forceinline__ int64_t row_offset(const Geom& g, int z, int y,
                                               int xh) {
@@ -304,138 +258,6 @@ __device__ __forceinline__ int64_t row_offset(const Geom& g, int z, int y,
 // Elements of one t-row of one right-hand side: Z * 24 * Y * Xh.
 __device__ __forceinline__ int64_t row_elems(const Geom& g) {
   return static_cast<int64_t>(g.Z) * kSpinorComps * g.plane;
-}
-
-// One periodic hopping block at output site (t, z, y, xh) for right-hand
-// sides r0 .. r0+nb-1 (nb <= NB): acc[r] = sum over the 8 directions.
-// out_parity 1 is H_oe (u_out = odd links, u_in = even links), 0 is H_eo.
-// tz_par is (t0 + z0) % 2 of the lattice origin.
-//
-// The source is read from three t-rows given by their base pointers (the
-// element (rhs r0, z=0, c=0, y=0, xh=0) of each row): src_c at t, src_tf
-// at t+1 and src_tb at t-1; consecutive right-hand sides of a row lie
-// rhs_stride elements apart.  A full-lattice source passes its rows
-// t, (t+1) % T and (t-1) % T with rhs_stride = T*Z*24*Y*Xh.  The links
-// and the row parity are indexed by the logical t.
-template <typename R, int GC, int NB>
-__device__ __forceinline__ void hop_site(
-    const R* __restrict__ u_out, const R* __restrict__ u_in, const R* src_c,
-    const R* src_tf, const R* src_tb, int64_t rhs_stride, const Geom& g,
-    int t, int z, int y, int xh, int nb, int out_parity, int tz_par,
-    R acc[NB][24]) {
-  // Row parity (t+z+y) % 2 decides the even-odd x shift (the paper's sel).
-  const int row = (t + z + y + tz_par) & 1;
-  const int xf = row == ((out_parity + 1) & 1) ? (xh + 1 == g.Xh ? 0 : xh + 1)
-                                               : xh;
-  const int xb = row == (out_parity & 1) ? (xh == 0 ? g.Xh - 1 : xh - 1) : xh;
-  const int yf = y + 1 == g.Y ? 0 : y + 1, yb = y == 0 ? g.Y - 1 : y - 1;
-  const int zf = z + 1 == g.Z ? 0 : z + 1, zb = z == 0 ? g.Z - 1 : z - 1;
-  const int tb = t == 0 ? g.T - 1 : t - 1;
-
-  const int64_t plane = g.plane;
-  auto goff = [&](int mu, int tt, int zz, int yy, int xx) -> int64_t {
-    return ((static_cast<int64_t>(mu) * g.T + tt) * g.Z + zz) * GC * plane +
-           static_cast<int64_t>(yy) * g.Xh + xx;
-  };
-
-#pragma unroll
-  for (int r = 0; r < NB; ++r) {
-#pragma unroll
-    for (int c = 0; c < 24; ++c) acc[r][c] = R(0);
-  }
-  hop_dir<0, R, GC, NB>(u_out + goff(0, t, z, y, xh), u_in + goff(0, t, z, y, xb),
-                        src_c + row_offset(g, z, y, xf),
-                        src_c + row_offset(g, z, y, xb), plane, rhs_stride,
-                        nb, acc);
-  hop_dir<1, R, GC, NB>(u_out + goff(1, t, z, y, xh), u_in + goff(1, t, z, yb, xh),
-                        src_c + row_offset(g, z, yf, xh),
-                        src_c + row_offset(g, z, yb, xh), plane, rhs_stride,
-                        nb, acc);
-  hop_dir<2, R, GC, NB>(u_out + goff(2, t, z, y, xh), u_in + goff(2, t, zb, y, xh),
-                        src_c + row_offset(g, zf, y, xh),
-                        src_c + row_offset(g, zb, y, xh), plane, rhs_stride,
-                        nb, acc);
-  hop_dir<3, R, GC, NB>(u_out + goff(3, t, z, y, xh), u_in + goff(3, tb, z, y, xh),
-                        src_tf + row_offset(g, z, y, xh),
-                        src_tb + row_offset(g, z, y, xh), plane, rhs_stride,
-                        nb, acc);
-}
-
-// Store acc for nb right-hand sides at `dst` (the element of rhs r0, c=0
-// at the output site), consecutive right-hand sides dst_stride apart:
-// dst = acc, or dst = psi0 + coeff * acc when psi0 (same offsets) is given.
-template <typename R, int NB>
-__device__ __forceinline__ void store_site(R* dst, const R* psi0,
-                                           int64_t dst_stride, int64_t plane,
-                                           int nb, R coeff,
-                                           R acc[NB][24]) {
-#pragma unroll
-  for (int r = 0; r < NB; ++r) {
-    if (r < nb) {
-#pragma unroll
-      for (int c = 0; c < 24; ++c) {
-        const int64_t o = r * dst_stride + c * plane;
-        dst[o] = psi0 != nullptr ? psi0[o] + coeff * acc[r][c] : acc[r][c];
-      }
-    }
-  }
-}
-
-// Hop at full-lattice site `idx` for every right-hand side, in blocks of
-// NB, and store out = acc, or out = psi0 + coeff * acc when psi0 is given.
-// The +-t neighbours are the rows (t +- 1) % T of the same array.
-template <typename R, int GC, int NB>
-__device__ __forceinline__ void hop_site_store(
-    const R* __restrict__ u_out, const R* __restrict__ u_in, const R* src,
-    const R* psi0, R* out, const Geom& g, int nrhs, int64_t idx,
-    int out_parity, int tz_par, R coeff) {
-  const int64_t rhs_stride = g.sites * kSpinorComps;
-  const int xh = static_cast<int>(idx % g.Xh);
-  const int y = static_cast<int>((idx / g.Xh) % g.Y);
-  const int z = static_cast<int>((idx / g.plane) % g.Z);
-  const int t = static_cast<int>(idx / (g.plane * g.Z));
-  const int tf = t + 1 == g.T ? 0 : t + 1, tb = t == 0 ? g.T - 1 : t - 1;
-  const int64_t rows = row_elems(g);
-  const int64_t site = t * rows + row_offset(g, z, y, xh);
-  for (int r0 = 0; r0 < nrhs; r0 += NB) {
-    const int nb = nrhs - r0 < NB ? nrhs - r0 : NB;
-    const R* s = src + r0 * rhs_stride;
-    R acc[NB][24];
-    hop_site<R, GC, NB>(u_out, u_in, s + t * rows, s + tf * rows,
-                        s + tb * rows, rhs_stride, g, t, z, y, xh, nb,
-                        out_parity, tz_par, acc);
-    const int64_t base = r0 * rhs_stride + site;
-    store_site<R, NB>(out + base, psi0 != nullptr ? psi0 + base : nullptr,
-                      rhs_stride, g.plane, nb, coeff, acc);
-  }
-}
-
-// Dispatch helper: call F::template run<R, GC, NB>() for the run-time
-// (itemsize, gc, nrhs).  NB is the right-hand-side block a thread keeps in
-// registers: 1, 2, or 4 (nrhs >= 3 runs in blocks of 4).
-template <typename F, typename R, int GC>
-cudaError_t dispatch_nb(int nrhs, F& f) {
-  if (nrhs == 1) return f.template run<R, GC, 1>();
-  if (nrhs == 2) return f.template run<R, GC, 2>();
-  return f.template run<R, GC, 4>();
-}
-
-template <typename F, typename R>
-cudaError_t dispatch_gc(int gc, int nrhs, F& f) {
-  switch (gc) {
-    case 18: return dispatch_nb<F, R, 18>(nrhs, f);
-    case 12: return dispatch_nb<F, R, 12>(nrhs, f);
-    case 8: return dispatch_nb<F, R, 8>(nrhs, f);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename F>
-cudaError_t dispatch(int itemsize, int gc, int nrhs, F& f) {
-  if (nrhs < 1) return cudaErrorInvalidValue;
-  if (itemsize == 4) return dispatch_gc<F, float>(gc, nrhs, f);
-  if (itemsize == 8) return dispatch_gc<F, double>(gc, nrhs, f);
-  return cudaErrorInvalidValue;
 }
 
 // Makes `device` the calling thread's current device for one launch and

@@ -1,6 +1,8 @@
-// Device code shared by the fused Dhat kernels B2 (wilson_dhat_fused.cu)
-// and B3 (wilson_dhat_stream.cu): one hopping block applied to a tile of
-// sites of one t-row for a group of right-hand sides, by one thread block.
+// Device code of the three kernels: one hopping block applied to a tile
+// of sites of one t-row for a group of right-hand sides, by one thread
+// block.  B1 (wilson_hop.cu) runs it once per block; the fused Dhat
+// kernels B2 (wilson_dhat_fused.cu) and B3 (wilson_dhat_stream.cu) run it
+// for each task of their persistent blocks.
 //
 // Work items are (site, source, direction group).  The 8 terms of a site
 // (4 directions, forward and backward) are split over D threads (D = 1 or
@@ -18,7 +20,14 @@
 // place, and the threads of every source of the group read them.  Link
 // bytes and the work of expanding them therefore do not grow with the
 // number of sources, and a tile site takes 8 x 18 reals of shared memory
-// whatever the link form.
+// whatever the link form.  The copy moves 16 bytes at a time wherever a
+// slot's run of links is contiguous and aligned (stage 1 of hop_tile), and
+// one real at a time elsewhere.
+//
+// Halo mode (HALO, B1 only) reads the source and the source-parity links
+// from arrays extended by one row and one plane on either side in t and z
+// (the distributed local step): the z and t neighbours lie at +-1 of the
+// centre and never wrap; x and y wrap as in periodic mode.
 //
 // The launch geometry (D, the source group G, the tile S, the shared-memory
 // bytes and the grid) is computed in Python, kernels/geometry.py, which the
@@ -26,10 +35,10 @@
 // launch whose shared memory is short.
 //
 // Summation order: each thread accumulates its directions in the order
-// mu = 0..3, forward before backward (the order of wilson_plane.cuh's
-// hop_site); the D partial sums are then added in order d = 0..D-1.  B2
-// and B3 both call hop_tile, with the same D for the same source count,
-// so they agree bit for bit.
+// mu = 0..3, forward before backward; the D partial sums are then added in
+// order d = 0..D-1.  The order depends on D alone, and the three kernels
+// take the same D for the same source count and type, so B2 and B3 agree
+// bit for bit, and so does the two-launch Dhat of B1.
 #pragma once
 
 #include <cstdint>
@@ -76,16 +85,30 @@ __device__ __forceinline__ void cp_async(R* dst_smem, const R* src) {
                : "memory");
 }
 
+// Asynchronous copy of 16 bytes, cached in L2 only; both addresses 16-byte
+// aligned.
+__device__ __forceinline__ void cp_async16(void* dst_smem, const void* src) {
+  const unsigned d =
+      static_cast<unsigned>(__cvta_generic_to_shared(dst_smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Neighbour coordinates of output site (t, z, y, xh): the even-odd x shift
-// depends on the row parity (t + z + y + t0 + z0) % 2, as in hop_site.
+// depends on the row parity (t + z + y + t0 + z0) % 2.  Periodic mode wraps
+// every neighbour; halo mode (HALO) wraps x and y only, and its z and t
+// neighbours are -1 and +1 of the centre (they index halo-extended arrays
+// through pointers shifted by one plane and one row).
 struct Nbr {
-  int xf, xb, yf, yb, zf, zb;
+  int xf, xb, yf, yb, zf, zb, tb;
 };
 
+template <bool HALO>
 __device__ __forceinline__ Nbr neighbours(const Geom& g, int t, int z, int y,
                                           int xh, int out_parity,
                                           int tz_par) {
@@ -95,8 +118,15 @@ __device__ __forceinline__ Nbr neighbours(const Geom& g, int t, int z, int y,
   n.xb = row == (out_parity & 1) ? (xh == 0 ? g.Xh - 1 : xh - 1) : xh;
   n.yf = y + 1 == g.Y ? 0 : y + 1;
   n.yb = y == 0 ? g.Y - 1 : y - 1;
-  n.zf = z + 1 == g.Z ? 0 : z + 1;
-  n.zb = z == 0 ? g.Z - 1 : z - 1;
+  if constexpr (HALO) {
+    n.zf = z + 1;
+    n.zb = z - 1;
+    n.tb = t - 1;
+  } else {
+    n.zf = z + 1 == g.Z ? 0 : z + 1;
+    n.zb = z == 0 ? g.Z - 1 : z - 1;
+    n.tb = t == 0 ? g.T - 1 : t - 1;
+  }
   return n;
 }
 
@@ -107,6 +137,24 @@ __device__ __forceinline__ int64_t link_offset(const Geom& g, int mu, int tt,
                                                int zz, int yy, int xx) {
   return ((static_cast<int64_t>(mu) * g.T + tt) * g.Z + zz) * GC * g.plane +
          static_cast<int64_t>(yy) * g.Xh + xx;
+}
+
+// Index of link plane 0 of slot `slot` of output site (t, z, y, xh) with
+// neighbours n: an even slot 2*mu is the forward link at the site (in u_out,
+// geometry g); an odd slot 2*mu+1 the backward link at the site's -mu
+// neighbour (in u_in, geometry gin: g, or g extended by 2 in t and z in halo
+// mode, where the centre sits at +1).
+template <int GC, bool HALO>
+__device__ __forceinline__ int64_t slot_offset(const Geom& g,
+                                               const Geom& gin, int slot,
+                                               int t, int z, int y, int xh,
+                                               const Nbr& n) {
+  constexpr int h = HALO ? 1 : 0;
+  const int mu = slot >> 1;
+  if ((slot & 1) == 0) return link_offset<GC>(g, mu, t, z, y, xh);
+  return link_offset<GC>(gin, mu, (mu == 3 ? n.tb : t) + h,
+                         (mu == 2 ? n.zb : z) + h, mu == 1 ? n.yb : y,
+                         mu == 0 ? n.xb : xh);
 }
 
 // Link slot `slot` of tile site s, from its 18 expanded planes (S apart).
@@ -142,19 +190,36 @@ __device__ __forceinline__ void tile_dir(const R* lk, int S, int s,
   recon_acc<MU, +1>(acc, uh);
 }
 
+// Link slots whose run over V consecutive sites (V reals = 16 bytes) is
+// contiguous: the forward slots 0, 2, 4, 6, the z and t backward slots 5
+// and 7 (a run of sites starting at a multiple of V lies in one z plane
+// when the plane is a multiple of V), and the y backward slot 3 when the
+// x extent Xh is a multiple of V (a run then lies in one y row; else the
+// y wrap may split it).  The x backward slot 1 shifts by row parity, site
+// by site, and is never a run.  wide_slot(k) is the k-th of them, the y
+// slot last.
+__device__ __forceinline__ int wide_slot(int k) {
+  if (k < 4) return 2 * k;
+  if (k == 4) return 5;
+  return k == 5 ? 7 : 3;
+}
+
 // One hopping block at the tile of sites site0 .. site0+S-1 (flattened
 // (z, y, xh) inside t-row t) for the right-hand sides of one group, by the
 // whole block (blockDim.x == D * G * S).
 //
 // src_c / src_tf / src_tb: the source's t-rows t, t+1, t-1, each pointing
 // at the element (first source of the group, z=0, c=0, y=0, xh=0); sources
-// lie src_stride apart.  dst (and psi0, if given) point at the same element
-// of the output's row t, sources dst_stride apart; the store is dst = acc,
-// or dst = psi0 + coeff * acc.  nr is the number of live sources of the
-// group (the last group may be short).  out_parity 1 is H_oe (u_out = odd
-// links, u_in = even links), 0 is H_eo.  Ends with a block barrier, so the
-// caller may publish the tile's stores and reuse shared memory at once.
-template <typename R, int GC, int D>
+// lie src_stride apart.  In halo mode they are the extended rows t+1, t+2
+// and t, each pointing at its plane z=1 (the centre), and u_in is the
+// extended [4][T+2][Z+2][GC][Y][Xh] gauge; g is the output's geometry
+// either way.  dst (and psi0, if given) point at the same element of the
+// output's row t, sources dst_stride apart; the store is dst = acc, or
+// dst = psi0 + coeff * acc.  nr is the number of live sources of the group
+// (the last group may be short).  out_parity 1 is H_oe (u_out = odd links,
+// u_in = even links), 0 is H_eo.  Ends with a block barrier, so the caller
+// may publish the tile's stores and reuse shared memory at once.
+template <typename R, int GC, int D, bool HALO = false>
 __device__ __forceinline__ void hop_tile(
     char* smem, const Geom& g, const Shape& sh, const R* __restrict__ u_out,
     const R* __restrict__ u_in, const R* src_c, const R* src_tf,
@@ -165,6 +230,12 @@ __device__ __forceinline__ void hop_tile(
   const int GS = sh.G * S;
   const int tid = threadIdx.x;
   const int64_t plane = g.plane;
+  const int row_sites = g.Z * static_cast<int>(plane);
+  Geom gin = g;
+  if (HALO) {
+    gin.T += 2;
+    gin.Z += 2;
+  }
   R* lk = reinterpret_cast<R*>(smem);
   // Compressed links land at the end of the region and are expanded in
   // place (stage 2).
@@ -176,34 +247,51 @@ __device__ __forceinline__ void hop_tile(
   const int lane = tid / S;  // d * G + r
   const int lanes = D * sh.G;
   const int site = site0 + s;
-  const bool in_row = site < g.Z * static_cast<int>(plane);
+  const bool in_row = site < row_sites;
   int xh = 0, y = 0, z = 0;
   Nbr n{};
   if (in_row) {
     xh = site % g.Xh;
     y = (site / g.Xh) % g.Y;
     z = site / static_cast<int>(plane);
-    n = neighbours(g, t, z, y, xh, out_parity, tz_par);
+    n = neighbours<HALO>(g, t, z, y, xh, out_parity, tz_par);
   }
 
   // 1. Copy the GC planes of the site's 8 links (forward at the site,
   //    backward at its -mu neighbour) into shared memory, site fastest.
+  //    Where runs of V sites are contiguous, 16-byte aligned and the tile a
+  //    multiple of V, the threads of a run copy its slots V reals per copy
+  //    instruction (see wide_slot); the rest go one real at a time.
+  //    Ragged shapes (a plane or a tile that is no multiple of V) take the
+  //    second path for every slot.
+  constexpr int V = 16 / sizeof(R);
+  const bool wide = S % V == 0 && plane % V == 0 &&
+      ((reinterpret_cast<uintptr_t>(u_out) |
+        reinterpret_cast<uintptr_t>(u_in)) & 15) == 0;
+  const bool wide_y = g.Xh % V == 0;
   if (in_row) {
-    const int tb = t == 0 ? g.T - 1 : t - 1;
-    for (int slot = lane; slot < 8; slot += lanes) {
-      const int mu = slot >> 1;
-      int64_t off;
-      if ((slot & 1) == 0) {
-        off = link_offset<GC>(g, mu, t, z, y, xh);
-      } else {
-        switch (mu) {
-          case 0: off = link_offset<GC>(g, 0, t, z, y, n.xb); break;
-          case 1: off = link_offset<GC>(g, 1, t, z, n.yb, xh); break;
-          case 2: off = link_offset<GC>(g, 2, t, n.zb, y, xh); break;
-          default: off = link_offset<GC>(g, 3, tb, z, y, xh); break;
-        }
+    if (wide) {
+      // The V * D * G threads of the V sites of run s / V split its slots
+      // (by j = lane * V + s % V); a run's offsets are those of its first
+      // site, V sites before the thread's own in every wide slot.
+      const int j = lane * V + s % V;
+      const int q0 = s - s % V;
+      for (int k = j; k < (wide_y ? 7 : 6); k += V * lanes) {
+        const int slot = wide_slot(k);
+        const R* from = ((slot & 1) ? u_in : u_out) +
+                        slot_offset<GC, HALO>(g, gin, slot, t, z, y, xh, n) -
+                        s % V;
+        R* to = raw + slot * GC * S + q0;
+#pragma unroll
+        for (int c = 0; c < GC; ++c) cp_async16(to + c * S, from + c * plane);
       }
-      const R* from = ((slot & 1) ? u_in : u_out) + off;
+    }
+    // Per real: every slot, or only those that are no run.
+    const int singles = wide ? (wide_y ? 1 : 2) : 8;
+    for (int k = lane; k < singles; k += lanes) {
+      const int slot = wide ? (k == 0 ? 1 : 3) : k;
+      const R* from = ((slot & 1) ? u_in : u_out) +
+                      slot_offset<GC, HALO>(g, gin, slot, t, z, y, xh, n);
       R* to = raw + slot * GC * S + s;
 #pragma unroll
       for (int c = 0; c < GC; ++c) cp_async(to + c * S, from + c * plane);
@@ -337,20 +425,30 @@ inline cudaError_t check_shape(const Shape& sh, int dgroups, int threads,
   return cudaSuccess;
 }
 
-// Blocks of `kernel` that fit one SM at `threads` threads and `smem` bytes
-// of dynamic shared memory.  Lifts the kernel's dynamic shared-memory limit
-// to the device's opt-in maximum first (needed above 48 KB).
+// Lifts `kernel`'s dynamic shared-memory limit to the device's opt-in
+// maximum less the kernel's static shared memory (needed above 48 KB).
 template <typename K>
-cudaError_t blocks_per_sm(K kernel, int threads, int smem, int device,
-                          int* per_sm) {
+cudaError_t lift_smem_limit(K kernel, int device) {
   int optin = 0;
   cudaError_t err = cudaDeviceGetAttribute(
       &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   if (err != cudaSuccess) return err;
-  if (smem > optin) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(reinterpret_cast<const void*>(kernel),
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             optin);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, reinterpret_cast<const void*>(kernel));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(
+      reinterpret_cast<const void*>(kernel),
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      optin - static_cast<int>(attr.sharedSizeBytes));
+}
+
+// Blocks of `kernel` that fit one SM at `threads` threads and `smem` bytes
+// of dynamic shared memory.  Lifts the kernel's dynamic shared-memory limit
+// first.
+template <typename K>
+cudaError_t blocks_per_sm(K kernel, int threads, int smem, int device,
+                          int* per_sm) {
+  cudaError_t err = lift_smem_limit(kernel, device);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
                                                        threads, smem);

@@ -1,6 +1,6 @@
-"""Launch geometry of the fused ``Dhat`` kernels B2 and B3.
+"""Launch geometry of the kernels B1, B2 and B3.
 
-Both kernels run the tile routine of ``csrc/wilson_site_tile.cuh``: a
+All three run the tile routine of ``csrc/wilson_site_tile.cuh``: a
 block handles ``S`` sites of one t-row for a group of ``G`` right-hand
 sides, with ``D`` threads per (site, source), each summing one group of
 directions.  This module chooses those numbers, the shared-memory bytes
@@ -10,14 +10,15 @@ which refuse a geometry that does not fit the kernel.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import List, Tuple
 
-__all__ = ["TileGeometry", "tile_geometry", "smem_bytes",
+__all__ = ["TileGeometry", "tile_geometry", "hop_geometry", "smem_bytes",
            "stream_flag_words", "stream_task", "stream_waits",
            "tile_planes", "tiles_on_plane", "check_geometry",
            "MAX_THREADS", "MAX_GROUP", "TARGET_THREADS", "LINK_PLANES",
-           "SMEM_LIMIT_BYTES", "SMEM_BUDGET_BYTES"]
+           "SMEM_LIMIT_BYTES", "SMEM_BUDGET_BYTES", "HOP_MIN_BLOCKS"]
 
 #: most threads of one block (``wilson::tile::kMaxThreads``)
 MAX_THREADS = 192
@@ -34,6 +35,10 @@ SMEM_LIMIT_BYTES = 232448
 #: so that the 3 blocks of 128 threads that the 168-register cap lets
 #: an SM hold also fit its shared memory
 SMEM_BUDGET_BYTES = 232448 // 3
+#: blocks a launch of B1 should have at least: its tiles shrink (down to
+#: one warp of threads) until the launch has this many, so that the 132
+#: SMs of an H100 each get about 8 blocks to interleave
+HOP_MIN_BLOCKS = 1024
 # 64-bit words ahead of B3's counters: the launch's finished blocks.
 _FLAG_HEADER = 1
 
@@ -65,6 +70,7 @@ def smem_bytes(S: int, itemsize: int) -> int:
     return S * LINK_PLANES * itemsize
 
 
+@functools.lru_cache(maxsize=None)
 def tile_geometry(Z: int, Y: int, Xh: int, nrhs: int,
                   itemsize: int) -> TileGeometry:
     """The geometry of B2 and B3 for a lattice row of ``Z * Y * Xh``
@@ -98,6 +104,29 @@ def tile_geometry(Z: int, Y: int, Xh: int, nrhs: int,
         S -= 8
     return TileGeometry(D=D, G=G, groups=groups, S=S,
                         tiles=-(-Z * Y * Xh // S), threads=D * G * S,
+                        smem=smem_bytes(S, itemsize))
+
+
+@functools.lru_cache(maxsize=None)
+def hop_geometry(T: int, Z: int, Y: int, Xh: int, nrhs: int,
+                 itemsize: int) -> TileGeometry:
+    """The geometry of B1 for ``T`` t-rows of ``Z * Y * Xh`` sites.
+
+    ``D`` and ``G`` are those of :func:`tile_geometry` (B2's and B3's),
+    so that the two-launch ``Dhat`` sums each site in their order.  B1
+    launches one block per (t-row, tile, source group) and nothing
+    else, so where B2's tile leaves fewer than ``HOP_MIN_BLOCKS``
+    blocks, the tile halves, as long as a block keeps a warp of threads
+    and, with ``D > 1``, whole warps per direction group.
+    """
+    g = tile_geometry(Z, Y, Xh, nrhs, itemsize)
+    S = g.S
+    while (T * -(-Z * Y * Xh // S) * g.groups < HOP_MIN_BLOCKS
+           and S % 16 == 0 and g.D * g.G * (S // 2) >= 32
+           and (g.D == 1 or g.G * (S // 2) % 32 == 0)):
+        S //= 2
+    return TileGeometry(D=g.D, G=g.G, groups=g.groups, S=S,
+                        tiles=-(-Z * Y * Xh // S), threads=g.D * g.G * S,
                         smem=smem_bytes(S, itemsize))
 
 

@@ -10,7 +10,7 @@ backends.  Its policy picks the path:
 * ``"stream"`` — kernel B3, one cooperative launch whose odd
   intermediate lives in a ring of 8 t-rows (a working set independent
   of T);
-* ``"auto"`` — ``"stream"`` or ``"resident"`` by the shape, as
+* ``"auto"`` — ``"unfused"`` or ``"resident"`` by the shape, as
   measured on the H100 (:func:`auto_policy`, the rule below).
 """
 from __future__ import annotations
@@ -24,42 +24,40 @@ from .wilson_stencil import (dhat_planar_fused, dhat_planar_fused_stream,
 
 __all__ = ["hop_block", "apply_dhat_planar", "apply_dhat_planar_fused",
            "apply_dhat_planar_stream", "apply_dhat_planar_any",
-           "auto_policy", "DHAT_POLICIES", "STREAM_MIN_ROW_SITES"]
+           "auto_policy", "DHAT_POLICIES", "UNFUSED_MIN_ROW_SITES"]
 
 EVEN, ODD = 0, 1
 
 DHAT_POLICIES = ("auto", "resident", "stream", "unfused")
 
-# The H100 rule for "auto", set by chip_smoke.py's device times of B2 and
-# B3 at its 20 policy points (PERF.md section 6, run 5; NVIDIA H100 80GB
-# HBM3 at 700 W):
-# - f64 (one source at wilson-64x16x16x8 and wilson-64x32x32x16, each link
-#   form): B2 at five points, even at the sixth (wilson-64x16x16x8, full
-#   links: 197.6 against 197.5 us);
-# - f32, a block of sources (full links: 12 at 16^4, 2, 4 and 12 at both
-#   large lattices): B3 at every point (16^4 x 12: 172 against 190 us);
-#   blocks with compressed links were not timed and stay on B2;
-# - f32, one source: B2 on the 2048-site t-rows of 16^4 (24 against 53
-#   us), B3 on the 8192- and 32768-site rows of wilson-64x16x16x8 and
-#   wilson-64x32x32x16 with every link form (e.g. 109 against 122 us, and
-#   713 against 741 us with 12-plane links).  B3 keeps a few rows in
-#   flight, so it needs long rows to fill the card.
-# The two-launch path never won, so "auto" never picks "unfused".
-STREAM_MIN_ROW_SITES = 4096
+# The H100 rule for "auto", set by chip_smoke.py on an NVIDIA H100 80GB
+# HBM3 at 700 W (PERF.md section 6):
+# - device time: since B1's redesign, the two-launch path (two B1
+#   launches, the second with the axpy) is the fastest Dhat at all 20
+#   policy points (f32 and f64, one source and blocks of 2, 4 and 12,
+#   every link form, wilson-16x16x16x16 to wilson-64x32x32x16), ahead of
+#   B2 and B3: B1's blocks are independent and launched plainly, so the
+#   card schedules them as they finish, where the fused kernels' resident
+#   blocks walk fixed task lists;
+# - solve time: with one source on the 2048-site t-rows of 16^4 the solve
+#   is bound by host work, and one launch per Dhat (B2) costs less of it
+#   than two, so the steady cgnr solve is faster on B2 there.
+# B3 ("stream") is never the fastest; it stays for its T-independent
+# working set, behind policy "stream" and the cuda_fused_stream backend.
+UNFUSED_MIN_ROW_SITES = 4096
 
 
-def auto_policy(psi_e_p_shape, itemsize: int, gauge_comps: int) -> str:
+def auto_policy(psi_e_p_shape) -> str:
     """The ``Dhat`` path ``"auto"`` takes for a planar spinor shape
-    ``([nrhs,] T, Z, 24, Y, Xh)`` of ``itemsize``-byte reals and links
-    of ``gauge_comps`` planes: B3 (``"stream"``) in f32 for a block of
-    sources with full links, and for one source on t-rows of at least
-    ``STREAM_MIN_ROW_SITES`` sites; B2 (``"resident"``) otherwise."""
-    if itemsize != 4:
-        return "resident"
+    ``([nrhs,] T, Z, 24, Y, Xh)``: two B1 launches (``"unfused"``),
+    except for one source on t-rows of fewer than
+    ``UNFUSED_MIN_ROW_SITES`` sites, where B2 (``"resident"``) makes the
+    solve faster.  The rule measured the same for f32 and f64 and for
+    every link form, so neither enters it."""
     _, Z, _, Y, Xh = psi_e_p_shape[-5:]
     if len(psi_e_p_shape) == 6 and psi_e_p_shape[0] > 1:
-        return "stream" if gauge_comps == 18 else "resident"
-    return "stream" if Z * Y * Xh >= STREAM_MIN_ROW_SITES else "resident"
+        return "unfused"
+    return "unfused" if Z * Y * Xh >= UNFUSED_MIN_ROW_SITES else "resident"
 
 
 def hop_block(u_out_p, u_in_p, src_p, *, out_parity: int,
@@ -95,8 +93,7 @@ def apply_dhat_planar_any(u_e_p, u_o_p, src_p, kappa: float, *,
     """Planar-in/planar-out ``Dhat`` with the policy of the module
     docstring; the choice never depends on a failure."""
     if policy == "auto":
-        policy = auto_policy(src_p.shape, src_p.element_size(),
-                             u_e_p.shape[3])
+        policy = auto_policy(src_p.shape)
     if policy == "resident":
         return apply_dhat_planar_fused(u_e_p, u_o_p, src_p, kappa)
     if policy == "unfused":

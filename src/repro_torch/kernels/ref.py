@@ -1,9 +1,10 @@
 """Plain PyTorch versions of the CUDA kernels (B1, B2 and B3).
 
 ``hop_block_planar_ref`` mirrors the reference's vectorized
-``hop_block_ext_planar_native`` in periodic form: the same projection,
-SU(3) multiply and reconstruction arithmetic, in the same order, on
-whole ``(T, Z, Y, Xh)`` planes instead of one site per thread.
+``hop_block_ext_planar_native``, periodic or on halo-extended arrays:
+the same projection, SU(3) multiply and reconstruction arithmetic, in
+the same order, on whole ``(T, Z, Y, Xh)`` planes instead of one site
+per thread.
 ``dhat_planar_stream_ref`` walks kernel B3's produce/consume schedule
 over its ring of t-rows with the same per-row arithmetic.  The
 kernel wrappers in :mod:`repro_torch.kernels.wilson_stencil` run these on
@@ -111,7 +112,8 @@ def _recon_acc(acc, uh, mu: int, s: int):
             add(3, a, _sgn(s, h1r), _sgn(s, h1i))
 
 
-def _hop_rows(u_out, u_in, u_tb, c, c_tf, c_tb, row, out_parity: int):
+def _hop_rows(u_out, u_in, u_tb, c, c_tf, c_tb, row, out_parity: int,
+              z_nbrs=None):
     """The hopping-block arithmetic on component-first planes.
 
     ``c`` / ``c_tf`` / ``c_tb``: the source at the output rows and at
@@ -119,8 +121,10 @@ def _hop_rows(u_out, u_in, u_tb, c, c_tf, c_tb, row, out_parity: int):
     t-rows; ``u_out`` / ``u_in``: ``(4, gc, R, Z, Y, Xh)`` links at the
     output / source parity of the same rows, ``u_tb`` the source-parity
     t-links ``(gc, R, Z, Y, Xh)`` of the rows before; ``row`` the row
-    parity ``(R, Z, Y, 1)``.  x/y/z neighbours are periodic rolls inside
-    the planes.  Returns ``([N,] R, Z, 24, Y, Xh)``.
+    parity ``(R, Z, Y, 1)``.  x/y neighbours are periodic rolls inside
+    the planes; z neighbours too, unless ``z_nbrs`` gives them as
+    ``(c_zf, c_zb, u_zb)`` (halo mode).  Returns ``([N,] R, Z, 24, Y,
+    Xh)``.
     """
     mask_f = row == (out_parity + 1) % 2
     mask_b = row == out_parity % 2
@@ -130,13 +134,16 @@ def _hop_rows(u_out, u_in, u_tb, c, c_tf, c_tb, row, out_parity: int):
     psi_xb = torch.where(mask_b, torch.roll(c, +1, dims=-1), c)
     psi_yf = torch.roll(c, -1, dims=-2)
     psi_yb = torch.roll(c, +1, dims=-2)
-    psi_zf = torch.roll(c, -1, dims=-3)
-    psi_zb = torch.roll(c, +1, dims=-3)
+    if z_nbrs is None:
+        psi_zf = torch.roll(c, -1, dims=-3)
+        psi_zb = torch.roll(c, +1, dims=-3)
+        u_zb = torch.roll(u_in[2], +1, dims=-3)
+    else:
+        psi_zf, psi_zb, u_zb = z_nbrs
 
     ux = u_in[0]
     u_xb = torch.where(mask_b, torch.roll(ux, +1, dims=-1), ux)
     u_yb = torch.roll(u_in[1], +1, dims=-2)
-    u_zb = torch.roll(u_in[2], +1, dims=-3)
 
     acc = [None] * SPINOR_COMPS
     hops = [(psi_xf, psi_xb, u_xb), (psi_yf, psi_yb, u_yb),
@@ -165,24 +172,36 @@ def _row_parity(rows, Zl: int, Y: int, tz_offset, device):
 def hop_block_planar_ref(u_out_p: torch.Tensor, u_in_p: torch.Tensor,
                          src_p: torch.Tensor, out_parity: int, *,
                          tz_offset: Tuple[int, int] = (0, 0),
+                         halo: bool = False,
                          axpy: Optional[Tuple[float, torch.Tensor]] = None
                          ) -> torch.Tensor:
-    """One periodic hopping block on planar fields (the B1 plain version).
+    """One hopping block on planar fields (the B1 plain version).
 
     ``u_out_p`` / ``u_in_p``: planar gauge ``(4, T, Z, gc, Y, Xh)`` at the
     output / source parity; ``src_p``: ``([nrhs,] T, Z, 24, Y, Xh)``;
-    ``axpy=(coeff, psi0_p)`` returns ``psi0 + coeff * hop``.
+    ``axpy=(coeff, psi0_p)`` returns ``psi0 + coeff * hop``.  With
+    ``halo``, ``src_p`` and ``u_in_p`` are extended to ``(T+2, Z+2)``,
+    the centre at +1, and z/t neighbours are read there without wrap
+    (the reference's ``hop_block_ext_planar_native``).
     """
     # Component axis first; an RHS axis lands right behind it, so the
     # trailing dims are (T, Z, Y, Xh) either way.
-    c = torch.movedim(src_p, -3, 0)          # (24, [N,] T, Z, Y, Xh)
-    u_in = torch.movedim(u_in_p, 3, 1)       # (4, gc, T, Z, Y, Xh)
+    c = torch.movedim(src_p, -3, 0)          # (24, [N,] T', Z', Y, Xh)
+    u_in = torch.movedim(u_in_p, 3, 1)       # (4, gc, T', Z', Y, Xh)
     u_out = torch.movedim(u_out_p, 3, 1)
     Tl, Zl, Y = u_out_p.shape[1], u_out_p.shape[2], u_out_p.shape[4]
     row = _row_parity(range(Tl), Zl, Y, tz_offset, src_p.device)
-    out = _hop_rows(u_out, u_in, torch.roll(u_in[3], +1, dims=-4), c,
-                    torch.roll(c, -1, dims=-4), torch.roll(c, +1, dims=-4),
-                    row, out_parity)
+    if halo:
+        mid = slice(1, -1)
+        out = _hop_rows(u_out, u_in[:, :, mid, mid], u_in[3, :, :-2, mid],
+                        c[..., mid, mid, :, :], c[..., 2:, mid, :, :],
+                        c[..., :-2, mid, :, :], row, out_parity,
+                        z_nbrs=(c[..., mid, 2:, :, :], c[..., mid, :-2, :, :],
+                                u_in[2, :, mid, :-2]))
+    else:
+        out = _hop_rows(u_out, u_in, torch.roll(u_in[3], +1, dims=-4), c,
+                        torch.roll(c, -1, dims=-4),
+                        torch.roll(c, +1, dims=-4), row, out_parity)
     if axpy is not None:
         coeff, psi0 = axpy
         out = psi0 + coeff * out

@@ -1,8 +1,9 @@
 """Wrappers of the hand-written CUDA kernels of the Wilson stencil.
 
 * :func:`hop_block_planar` — kernel B1 (``csrc/wilson_hop.cu``), one
-  even-odd hopping block with an optional fused axpy epilogue; port of
-  the reference's ``hop_block_planar`` Pallas kernel.
+  even-odd hopping block with an optional fused axpy epilogue, periodic
+  or on halo-extended arrays; port of the reference's
+  ``hop_block_planar`` Pallas kernel.
 * :func:`dhat_planar_fused` — kernel B2 (``csrc/wilson_dhat_fused.cu``),
   ``psi_e - kappa^2 H_eo H_oe psi_e`` in one cooperative launch; port of
   the reference's ``dhat_planar_fused`` Pallas kernel.
@@ -11,8 +12,9 @@
   launch whose odd intermediate lives in a ring of ``window`` t-rows;
   port of the reference's ``dhat_planar_fused_stream`` Pallas kernel.
 
-B2 and B3 share the tile routine of ``csrc/wilson_site_tile.cuh``; their
-launch geometry comes from :mod:`repro_torch.kernels.geometry`.
+The three kernels share the tile routine of
+``csrc/wilson_site_tile.cuh``; their launch geometry comes from
+:mod:`repro_torch.kernels.geometry`.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with ``torch.empty``, launches on the current CUDA
@@ -31,8 +33,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import build, ref
-from .geometry import (TileGeometry, check_geometry, stream_flag_words,
-                       tile_geometry)
+from .geometry import (TileGeometry, check_geometry, hop_geometry,
+                       stream_flag_words, tile_geometry)
 from .layout import (GAUGE_COMPS, GAUGE_COMPS_MINIMAL, GAUGE_COMPS_TWO_ROW,
                      SPINOR_COMPS)
 
@@ -152,9 +154,11 @@ def dhat_stream_traffic_model(Tl: int, Zl: int, Y: int, Xh: int, *,
     }
 
 
-def _check_fields(gauges, spinors, *, what: str):
-    """Validate the common contract of both kernels; returns
-    ``(T, Z, Y, Xh, nrhs, gc)``."""
+def _check_fields(gauges, spinors, *, what: str, halo: bool = False):
+    """Validate the common contract of the kernels; returns the output's
+    ``(T, Z, Y, Xh, nrhs, gc)``.  With ``halo`` the first spinor (the
+    source) and the last gauge (``u_in``) are extended by 2 in t and z,
+    and the other spinors (``psi0``) have the output's shape."""
     src = spinors[0]
     if src.dtype not in _KERNEL_DTYPES:
         if src.dtype == torch.bfloat16:
@@ -167,21 +171,29 @@ def _check_fields(gauges, spinors, *, what: str):
         raise ValueError(f"{what}: spinor must be (T, Z, 24, Y, Xh) or "
                          f"(nrhs, T, Z, 24, Y, Xh); got {tuple(src.shape)}")
     T, Z, c, Y, Xh = src.shape[-5:]
+    ext = 2 if halo else 0
+    T, Z = T - ext, Z - ext
     nrhs = src.shape[0] if src.ndim == 6 else 1
     if c != SPINOR_COMPS:
         raise ValueError(f"{what}: spinor has {c} component planes, not 24")
+    if T < 1 or Z < 1:
+        raise ValueError(f"{what}: a halo-extended spinor needs T and Z "
+                         f"of at least 3; got {tuple(src.shape)}")
     gc = gauges[0].shape[3] if gauges[0].ndim == 6 else None
     if gc not in RECON_FLOPS_PER_LINK:
         raise ValueError(f"{what}: gauge must be (4, T, Z, gc, Y, Xh) with "
                          f"gc in (18, 12, 8); got {tuple(gauges[0].shape)}")
-    for u in gauges:
-        if tuple(u.shape) != (4, T, Z, gc, Y, Xh):
+    for i, u in enumerate(gauges):
+        e = ext if i == len(gauges) - 1 else 0
+        if tuple(u.shape) != (4, T + e, Z + e, gc, Y, Xh):
             raise ValueError(f"{what}: gauge shape {tuple(u.shape)} does "
-                             f"not match spinor lattice {(T, Z, Y, Xh)}")
+                             f"not match spinor lattice {(T, Z, Y, Xh)}"
+                             + (" (u_in halo-extended)" if e else ""))
+    out_shape = src.shape[:-5] + (T, Z, SPINOR_COMPS, Y, Xh)
     for s in spinors[1:]:
-        if s.shape != src.shape:
+        if s.shape != out_shape:
             raise ValueError(f"{what}: spinor shapes differ: "
-                             f"{tuple(s.shape)} vs {tuple(src.shape)}")
+                             f"{tuple(s.shape)} vs {tuple(out_shape)}")
     for t in (*gauges, *spinors):
         if t.dtype != src.dtype or t.device != src.device:
             raise ValueError(f"{what}: all operands need dtype {src.dtype} "
@@ -204,35 +216,41 @@ def hop_block_planar(u_out_p: torch.Tensor, u_in_p: torch.Tensor,
                      halo: bool = False,
                      axpy: Optional[Tuple[float, torch.Tensor]] = None
                      ) -> torch.Tensor:
-    """One periodic hopping block in the planar layout (kernel B1).
+    """One hopping block in the planar layout (kernel B1).
 
     ``u_out_p`` / ``u_in_p``: planar gauge ``(4, T, Z, gc, Y, Xh)`` at the
     output / source parity, gc in {18, 12, 8}; ``src_p``: ``(T, Z, 24, Y,
     Xh)`` or batched ``(nrhs, T, Z, 24, Y, Xh)``; ``out_parity`` 1 is
     ``H_oe``, 0 is ``H_eo``; ``tz_offset`` the global ``(t0, z0)`` origin
     for the parity mask; ``axpy=(coeff, psi0_p)`` returns ``psi0 + coeff *
-    hop``.  f32 and f64; bf16 and ``halo=True`` raise
-    ``NotImplementedError``.
+    hop``.  With ``halo=True``, ``src_p`` and ``u_in_p`` are extended to
+    ``(T+2, Z+2)`` in t and z, the centre at +1: z and t neighbours are
+    read there and never wrap (x and y still do); ``u_out_p``, ``psi0_p``
+    and the result are not extended.  f32 and f64; bf16 raises
+    ``NotImplementedError``.  Tiles: :func:`geometry.hop_geometry`.
     """
-    if halo:
-        raise NotImplementedError(
-            "hop_block_planar: halo mode is not ported yet (the "
-            "distributed slice)")
     spinors = (src_p,) if axpy is None else (src_p, axpy[1])
     T, Z, Y, Xh, nrhs, gc = _check_fields((u_out_p, u_in_p), spinors,
-                                          what="hop_block_planar")
+                                          what="hop_block_planar",
+                                          halo=halo)
     if src_p.device.type == "cpu":
         return ref.hop_block_planar_ref(u_out_p, u_in_p, src_p, out_parity,
-                                        tz_offset=tz_offset, axpy=axpy)
-    out = torch.empty_like(src_p)
+                                        tz_offset=tz_offset, halo=halo,
+                                        axpy=axpy)
+    itemsize = src_p.element_size()
+    geom = hop_geometry(T, Z, Y, Xh, nrhs, itemsize)
+    check_geometry(geom, itemsize)
+    out = torch.empty(src_p.shape[:-5] + (T, Z, SPINOR_COMPS, Y, Xh),
+                      dtype=src_p.dtype, device=src_p.device)
     lib = build.load("wilson_hop")
     dev = src_p.device
     rc = lib.wilson_hop_launch(
         u_out_p.data_ptr(), u_in_p.data_ptr(), src_p.data_ptr(),
         None if axpy is None else axpy[1].data_ptr(), out.data_ptr(),
-        T, Z, Y, Xh, nrhs, gc, src_p.element_size(), int(out_parity) & 1,
+        T, Z, Y, Xh, nrhs, gc, itemsize, int(halo), int(out_parity) & 1,
         (tz_offset[0] + tz_offset[1]) & 1,
-        0.0 if axpy is None else float(axpy[0]), dev.index or 0,
+        0.0 if axpy is None else float(axpy[0]), geom.D, geom.G, geom.S,
+        geom.groups, geom.tiles, geom.threads, geom.smem, dev.index or 0,
         _stream(dev))
     if rc != 0:
         raise RuntimeError(f"wilson_hop_launch failed: CUDA error {rc}")

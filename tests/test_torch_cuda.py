@@ -1,5 +1,6 @@
-"""CUDA kernels B1, B2 and B3 against their plain versions, and the
-batched solve through B3, on the card.
+"""CUDA kernels B1 (periodic and halo mode), B2 and B3 against their
+plain versions, the two-launch Dhat against B2, and the batched solve
+through B3, on the card.
 
 These tests need a GPU (marker ``cuda``) and skip without one, deciding
 in the ``cuda`` fixture; they import neither JAX
@@ -56,6 +57,72 @@ def test_hop_kernel_matches_plain(cuda, dtype, mode):
                                                 axpy=axpy)
                 torch.testing.assert_close(got, want, rtol=0,
                                            atol=ATOL[dtype])
+
+
+def _wrap(a, t_axis):
+    """``a`` extended by one row and plane on either side in t and z by
+    periodic wrap."""
+    for ax in (t_axis, t_axis + 1):
+        n = a.shape[ax]
+        a = torch.cat([a.narrow(ax, n - 1, 1), a, a.narrow(ax, 0, 1)], ax)
+    return a.contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mode", ["none", "two_row", "minimal"])
+@pytest.mark.parametrize("shape", [(3, 5, 3, 6), (4, 4, 4, 16)])
+def test_hop_kernel_halo_mode_matches_plain(cuda, dtype, mode, shape):
+    """Halo mode on extended arrays with random halos against its plain
+    version (per-real link copies at Xh = 3, 16-byte ones at Xh = 8),
+    and periodic mode against halo mode on wrap-extended arrays, bit for
+    bit."""
+    T, Z, Y, X = shape
+    u_e, u_o, src = _fields(cuda, dtype, mode, shape=(T + 2, Z + 2, Y, X))
+    pu_e, pu_o, psrc = _fields(cuda, dtype, mode, shape=shape)
+    for n in (1, 4, 12):
+        s = src[0].contiguous() if n == 1 else src[:n]
+        ps = psrc[0].contiguous() if n == 1 else psrc[:n]
+        lead = 0 if n == 1 else 1
+        psi0 = ps.flip(-1).contiguous()
+        for parity in (0, 1):
+            u_out, u_in = (u_o, u_e) if parity else (u_e, u_o)
+            u_out = u_out[:, 1:-1, 1:-1].contiguous()
+            pu_out, pu_in = (pu_o, pu_e) if parity else (pu_e, pu_o)
+            for tz in ((0, 0), (1, 0), (0, 1), (1, 1)):
+                for axpy in (None, (-0.37, psi0)):
+                    got = ws.hop_block_planar(u_out, u_in, s, parity,
+                                              tz_offset=tz, halo=True,
+                                              axpy=axpy)
+                    want = ref.hop_block_planar_ref(
+                        u_out, u_in, s, parity, tz_offset=tz, halo=True,
+                        axpy=axpy)
+                    torch.testing.assert_close(got, want, rtol=0,
+                                               atol=ATOL[dtype])
+                    periodic = ws.hop_block_planar(pu_out, pu_in, ps,
+                                                   parity, tz_offset=tz,
+                                                   axpy=axpy)
+                    wrapped = ws.hop_block_planar(
+                        pu_out, _wrap(pu_in, 1), _wrap(ps, lead), parity,
+                        tz_offset=tz, halo=True, axpy=axpy)
+                    assert torch.equal(periodic, wrapped)
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 3, 6), (4, 5, 3, 10),
+                                   (2, 7, 5, 6), (8, 8, 8, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_two_launch_dhat_equals_b2(cuda, shape, dtype):
+    """Two B1 launches (the cuda_hop backend's Dhat) equal B2 bit for bit:
+    B1 takes B2's direction split, so every site sums in B2's order."""
+    gen = torch.Generator().manual_seed(4)
+    for mode in ("none", "two_row", "minimal"):
+        u_e, u_o, _ = _fields(cuda, dtype, mode, shape=shape)
+        T, Z, Y, Xh = u_e.shape[1], u_e.shape[2], u_e.shape[4], u_e.shape[5]
+        for nrhs in (1, 3, 4, 5, 12):
+            lead = (nrhs,) if nrhs > 1 else ()
+            psi = torch.randn(lead + (T, Z, 24, Y, Xh), generator=gen,
+                              dtype=dtype).to(cuda)
+            assert torch.equal(ops.apply_dhat_planar(u_e, u_o, psi, KAPPA),
+                               ws.dhat_planar_fused(u_e, u_o, psi, KAPPA))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -1,9 +1,12 @@
-"""The launch geometry of the fused ``Dhat`` kernels B2 and B3
+"""The launch geometry of the kernels B1, B2 and B3
 (``repro_torch.kernels.geometry``), checked on the CPU: the tiles cover
 every (site, source, direction) once, the shared memory fits a block,
-and B3's task list, counters and ring are sized and ordered so that
-every consumer reads what its producers wrote.  The kernels themselves run
-only on the card (``tests/test_torch_cuda.py``).
+B1's blocks cover every (t-row, tile, source group) once with B2's
+direction split, the tile routine's link copies (16 bytes or one real at
+a time) land every link plane of a tile once, and B3's task list,
+counters and ring are sized and ordered so that every consumer reads
+what its producers wrote.  The kernels themselves run only on the card
+(``tests/test_torch_cuda.py``).
 """
 import random
 
@@ -134,6 +137,174 @@ def test_in_place_expansion_reads_each_raw_link_before_it_is_overwritten(
         for sl in slots:
             col[18 * sl: 18 * (sl + 1)] = [("u", sl, k) for k in range(18)]
     assert col == [("u", sl, k) for sl in range(8) for k in range(18)]
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_hop_geometry_keeps_the_direction_split_of_b2(itemsize):
+    """B1's D (hence each thread's summation order) and G are B2's at
+    every source count and row; only the tile may shrink, to no less
+    than a warp of threads and whole warps per direction group; it
+    shrinks only while the launch has fewer than HOP_MIN_BLOCKS blocks."""
+    for nrhs in list(range(1, 25)) + [48]:
+        for T in (1, 3, 16, 64):
+            for Z, Y, Xh in ROWS + [(32, 32, 32)]:
+                b2 = geo.tile_geometry(Z, Y, Xh, nrhs, itemsize)
+                g = geo.hop_geometry(T, Z, Y, Xh, nrhs, itemsize)
+                geo.check_geometry(g, itemsize)
+                assert (g.D, g.G, g.groups) == (b2.D, b2.G, b2.groups)
+                assert g.S <= b2.S and b2.S % g.S == 0
+                assert g.threads == g.D * g.G * g.S
+                assert g.tiles * g.S >= Z * Y * Xh > (g.tiles - 1) * g.S
+                assert g.smem == geo.smem_bytes(g.S, itemsize)
+                if g.D > 1:
+                    assert (g.G * g.S) % 32 == 0
+                if g.S < b2.S:
+                    assert g.threads >= 32
+                    # One more halving was due: the block count was short.
+                    assert T * -(-Z * Y * Xh // (2 * g.S)) * g.groups < \
+                        geo.HOP_MIN_BLOCKS
+
+
+def test_hop_geometry_at_the_main_lattices():
+    """16^4 with one source takes 32-site tiles (1024 blocks, where B2's
+    128-site tiles would give 256); wilson-64x16x16x8 keeps B2's tile;
+    the propagator's block keeps B2's 32-site tiles."""
+    assert [(g.D, g.G, g.groups, g.S, 16 * g.tiles * g.groups) for g in (
+        geo.hop_geometry(16, 16, 16, 8, 1, 4),
+        geo.hop_geometry(16, 16, 16, 32, 1, 4),
+        geo.hop_geometry(16, 16, 16, 8, 12, 4),
+        geo.hop_geometry(16, 16, 16, 8, 1, 8))] == \
+        [(1, 1, 1, 32, 1024), (1, 1, 1, 128, 1024), (1, 4, 3, 32, 3072),
+         (2, 1, 1, 32, 1024)]
+
+
+@pytest.mark.parametrize("row", ROWS)
+@pytest.mark.parametrize("T", [1, 3])
+@pytest.mark.parametrize("nrhs", [1, 4, 5, 12])
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_hop_blocks_cover_every_row_tile_group_once(row, T, nrhs,
+                                                    itemsize):
+    """B1's blocks, decoded as the kernel decodes blockIdx, and their
+    threads (d, r, s) cover each (t, site, source, direction) once."""
+    Z, Y, Xh = row
+    g = geo.hop_geometry(T, Z, Y, Xh, nrhs, itemsize)
+    per_row = g.tiles * g.groups
+    row_sites = Z * Y * Xh
+    seen = {}
+    for w in range(T * per_row):
+        t, grp, tile = w // per_row, (w % per_row) // g.tiles, w % g.tiles
+        r0 = grp * g.G
+        nr = min(g.G, nrhs - r0)
+        for tid in range(g.threads):
+            d, r, s = (tid // (g.G * g.S), (tid // g.S) % g.G, tid % g.S)
+            site = tile * g.S + s
+            if site >= row_sites or r >= nr:
+                continue
+            for mu in _directions(g.D, d):
+                key = (t, site, r0 + r, mu)
+                seen[key] = seen.get(key, 0) + 1
+    assert len(seen) == T * row_sites * nrhs * 4
+    assert set(seen.values()) == {1}
+
+
+def _wide_slot(k):
+    """wilson_site_tile.cuh's wide_slot: the k-th slot copied in runs."""
+    return 2 * k if k < 4 else (5 if k == 4 else (7 if k == 5 else 3))
+
+
+def _link_index(T, Z, Y, Xh, gc, mu, t, z, y, x, c):
+    """Element (mu, t, z, c, y, x) of a planar gauge (4, T, Z, gc, Y,
+    Xh)."""
+    return ((((mu * T + t) * Z + z) * gc + c) * Y + y) * Xh + x
+
+
+def _site_link(T, Z, Y, Xh, gc, halo, slot, t, site, c, out_parity,
+               tz_par):
+    """(array, index) of plane c of link slot ``slot`` of output site
+    ``site`` of row t, from the stencil's definition: forward links at
+    the site in u_out; backward ones at its -mu neighbour in u_in,
+    periodic or, in halo mode, in the array extended by 2 in t and z."""
+    x, y, z = site % Xh, (site // Xh) % Y, site // (Xh * Y)
+    mu = slot // 2
+    if slot % 2 == 0:
+        return "out", _link_index(T, Z, Y, Xh, gc, mu, t, z, y, x, c)
+    row = (t + z + y + tz_par) % 2
+    xb = (x - 1) % Xh if row == out_parity % 2 else x
+    h = 1 if halo else 0
+    tt, zz, yy, xx = t + h, z + h, y, x
+    if mu == 0:
+        xx = xb
+    elif mu == 1:
+        yy = (y - 1) % Y
+    elif mu == 2:
+        zz = z if halo else (z - 1) % Z
+    else:
+        tt = t if halo else (t - 1) % T
+    return "in", _link_index(T + 2 * h, Z + 2 * h, Y, Xh, gc, mu, tt, zz,
+                             yy, xx, c)
+
+
+@pytest.mark.parametrize("row", ROWS + [(4, 2, 6), (2, 4, 8)])
+@pytest.mark.parametrize("nrhs", [1, 4])
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("halo", [False, True])
+@pytest.mark.parametrize("gc", [18, 8])
+def test_link_copies_land_every_plane_of_a_tile_once(row, nrhs, itemsize,
+                                                     halo, gc):
+    """Stage 1 of hop_tile, as the kernel assigns its copies to threads
+    (16-byte runs of V sites where the tile and the plane are multiples
+    of V, the y slot only where Xh is; one real at a time for the rest):
+    every (slot, plane, site) of a tile's live sites is copied exactly
+    once, and every copy of a run reads V consecutive reals, each the
+    link the stencil names for its site (four tiles of each row)."""
+    Z, Y, Xh = row
+    T = 3
+    V = 16 // itemsize
+    g = geo.hop_geometry(T, Z, Y, Xh, nrhs, itemsize)
+    plane, row_sites = Y * Xh, Z * Y * Xh
+    lanes = g.D * g.G
+    wide = g.S % V == 0 and plane % V == 0
+    wide_y = Xh % V == 0
+    for t in (0, T - 1):
+        for parity in (0, 1):
+            # The first tiles, one inside and the ragged last one.
+            for tile in sorted({0, 1, g.tiles // 2, g.tiles - 1}
+                               & set(range(g.tiles))):
+                site0 = tile * g.S
+                got = {}
+
+                def land(slot, c, s, src):
+                    key = (slot, c, s)
+                    assert key not in got, f"{key} copied twice"
+                    got[key] = src
+                for tid in range(g.threads):
+                    s, lane = tid % g.S, tid // g.S
+                    if site0 + s >= row_sites:
+                        continue
+                    if wide:
+                        j, first = lane * V + s % V, site0 + s - s % V
+                        for k in range(j, 7 if wide_y else 6, V * lanes):
+                            slot = _wide_slot(k)
+                            for c in range(gc):
+                                arr, own = _site_link(
+                                    T, Z, Y, Xh, gc, halo, slot, t,
+                                    site0 + s, c, parity, 1)
+                                for i in range(V):
+                                    land(slot, c, first - site0 + i,
+                                         (arr, own - s % V + i))
+                    singles = (1 if wide_y else 2) if wide else 8
+                    for k in range(lane, singles, lanes):
+                        slot = (1 if k == 0 else 3) if wide else k
+                        for c in range(gc):
+                            land(slot, c, s, _site_link(
+                                T, Z, Y, Xh, gc, halo, slot, t, site0 + s,
+                                c, parity, 1))
+                live = range(min(g.S, row_sites - site0))
+                assert got == {(slot, c, s): _site_link(
+                    T, Z, Y, Xh, gc, halo, slot, t, site0 + s, c, parity, 1)
+                    for slot in range(8) for c in range(gc) for s in live}
+    if (Z, Y, Xh) == (16, 16, 8):
+        assert wide and wide_y
 
 
 @pytest.mark.parametrize("window", [4, 5, 6])

@@ -1,7 +1,8 @@
 """The port's kernel wrappers on CPU tensors — that is, the plain PyTorch
-versions of kernels B1 (hop block) and B2 (fused Dhat) — against the
-reference's Pallas kernels in interpret mode, plus the wrappers'
-contracts (policy, refusals, launch counting).
+versions of kernels B1 (hop block, periodic and halo mode) and B2 (fused
+Dhat) — against the reference's Pallas kernels in interpret mode and its
+``hop_block_ext_planar_native``, plus the wrappers' contracts (policy,
+refusals, launch counting).
 
 The Pallas comparisons cover both parities, axpy on and off, nrhs 1 and
 4 and gc 18/12/8 in a few combined cases (each interpret-mode call
@@ -144,6 +145,125 @@ def test_tz_offset_flips_the_parity_mask():
     assert not torch.allclose(a, c)
 
 
+_HALO_CACHE = {}
+
+
+def halo_inputs(gc, nrhs, shape=(3, 4, 3, 6)):
+    """numpy planar inputs of halo mode for the lattice ``shape``: both
+    gauge parities and two sources on the lattice extended by 2 in t and
+    z (random halos, SU(3) links through the reference's codecs), and a
+    ``psi0`` of the output's shape."""
+    key = (gc, nrhs, shape)
+    if key not in _HALO_CACHE:
+        T, Z, Y, X = shape
+        rng = np.random.default_rng([T, Z, Y, X, gc, nrhs, 2])
+        jUe, jUo = jeo.pack_gauge(jnp.asarray(su3_field(
+            rng, (4, T + 2, Z + 2, Y, X))))
+        u = [np.asarray(jlayout.gauge_compress_planar(
+            jlayout.gauge_to_planar(h), MODES[gc])) for h in (jUe, jUo)]
+        lead = (nrhs,) if nrhs > 1 else ()
+        src = rng.standard_normal(lead + (T + 2, Z + 2, 24, Y, X // 2)
+                                  ).astype(np.float32)
+        psi0 = rng.standard_normal(lead + (T, Z, 24, Y, X // 2)).astype(
+            np.float32)
+        _HALO_CACHE[key] = (u[0], u[1], src, psi0)
+    return _HALO_CACHE[key]
+
+
+def _centre(a, t_axis):
+    """The unextended centre of a halo-extended array."""
+    return np.ascontiguousarray(
+        np.take(np.take(a, range(1, a.shape[t_axis] - 1), t_axis),
+                range(1, a.shape[t_axis + 1] - 1), t_axis + 1))
+
+
+@pytest.mark.parametrize("gc", [18, 12, 8])
+@pytest.mark.parametrize("nrhs", [1, 4])
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("tz", [(0, 0), (1, 0), (0, 1)])
+def test_halo_hop_matches_reference_native(gc, nrhs, parity, tz):
+    """Halo mode's plain version against the reference's
+    ``hop_block_ext_planar_native`` on the same extended inputs."""
+    u_e, u_o, src, _ = halo_inputs(gc, nrhs)
+    u_out, u_in = (u_o, u_e) if parity else (u_e, u_o)
+    u_out = _centre(u_out, 1)
+    want = jstencil.hop_block_ext_planar_native(
+        jnp.asarray(u_out), jnp.asarray(u_in), jnp.asarray(src), parity,
+        parity_offset=(tz[0] + tz[1]) % 2)
+    got = ws.hop_block_planar(_t(u_out), _t(u_in), _t(src), parity,
+                              tz_offset=tz, halo=True)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(convert.to_numpy(got), np.asarray(want),
+                               rtol=0, atol=ATOL_F32)
+
+
+def test_halo_hop_matches_pallas_interpret():
+    """One halo case, with the axpy epilogue, against the reference's
+    Pallas kernel in interpret mode."""
+    u_e, u_o, src, psi0 = halo_inputs(12, 4)
+    u_out = _centre(u_o, 1)
+    want = jstencil.hop_block_planar(
+        jnp.asarray(u_out), jnp.asarray(u_e), jnp.asarray(src), 1,
+        tz_offset=(1, 0), halo=True, axpy=(-0.37, jnp.asarray(psi0)),
+        interpret=True)
+    got = ws.hop_block_planar(_t(u_out), _t(u_e), _t(src), 1,
+                              tz_offset=(1, 0), halo=True,
+                              axpy=(-0.37, _t(psi0)))
+    np.testing.assert_allclose(convert.to_numpy(got), np.asarray(want),
+                               rtol=0, atol=ATOL_F32)
+
+
+def _wrap(a, t_axis):
+    """``a`` extended by one row and plane on either side in t and z by
+    periodic wrap."""
+    for ax in (t_axis, t_axis + 1):
+        n = a.shape[ax]
+        a = torch.cat([a.narrow(ax, n - 1, 1), a, a.narrow(ax, 0, 1)], ax)
+    return a.contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("parity", [0, 1])
+def test_periodic_equals_halo_on_wrap_extended_arrays(dtype, parity):
+    """Periodic mode is halo mode on arrays extended by periodic wrap, bit
+    for bit: every link form, one source and a block, with the axpy."""
+    for gc in (18, 12, 8):
+        for nrhs in (1, 4):
+            u_e, u_o, src, psi0 = (_t(a).to(dtype) for a in
+                                   planar_inputs("3x5x3x6", gc, nrhs))
+            u_out, u_in = (u_o, u_e) if parity else (u_e, u_o)
+            lead = 1 if nrhs > 1 else 0
+            for tz in ((0, 0), (1, 0)):
+                for axpy in (None, (-0.37, psi0)):
+                    want = ws.hop_block_planar(u_out, u_in, src, parity,
+                                               tz_offset=tz, axpy=axpy)
+                    got = ws.hop_block_planar(
+                        u_out, _wrap(u_in, 1), _wrap(src, lead), parity,
+                        tz_offset=tz, halo=True, axpy=axpy)
+                    assert torch.equal(got, want)
+
+
+def test_halo_mode_checks_the_extended_shapes():
+    """Halo mode takes ``src`` and ``u_in`` extended by 2 in t and z, and
+    ``u_out``/``psi0`` not; anything else raises."""
+    u_e, u_o, src, psi0 = (_t(a) for a in halo_inputs(18, 4))
+    u_out = _t(_centre(u_o.numpy(), 1))
+    out = ws.hop_block_planar(u_out, u_e, src, 1, halo=True,
+                              axpy=(0.5, psi0))
+    assert out.shape == psi0.shape
+    with pytest.raises(ValueError, match="gauge shape"):
+        ws.hop_block_planar(u_o, u_e, src, 1, halo=True)
+    with pytest.raises(ValueError, match="gauge shape"):
+        ws.hop_block_planar(u_out, _t(_centre(u_e.numpy(), 1)), src, 1,
+                            halo=True)
+    with pytest.raises(ValueError, match="spinor shapes differ"):
+        ws.hop_block_planar(u_out, u_e, src, 1, halo=True,
+                            axpy=(0.5, src))
+    with pytest.raises(ValueError, match="at least 3"):
+        ws.hop_block_planar(u_out[:, :0], u_e[:, :2], src[:, :2], 1,
+                            halo=True)
+
+
 def _policy_taken(monkeypatch, cases):
     """The path ``auto`` and ``unfused`` take for each ``(shape, dtype,
     gc)`` of ``cases``; shape-only tensors on the meta device."""
@@ -167,32 +287,31 @@ F32, F64 = torch.float32, torch.float64
 
 
 def test_auto_policy_is_resident_at_the_slice_shapes(monkeypatch):
-    """``auto`` takes the one-launch B2 path where B2 measured faster:
-    one f32 source at 16^4 (as a plain spinor and as a block of one),
-    and one f64 source at wilson-64x16x16x8 and wilson-64x32x32x16 with
-    each link form (and so at 16^4 too); ``unfused`` takes the
-    two-launch path."""
-    cases = [((16, 16, 24, 16, 8), dtype, 18) for dtype in (F32, F64)]
+    """``auto`` takes the one-launch B2 path where the solve measured
+    faster on it: one source on the 2048-site t-rows of 16^4, f32 and f64,
+    every link form, as a plain spinor and as a block of one (the solve
+    is bound by host work there, and B2 is one launch per Dhat);
+    ``unfused`` takes the two-launch path."""
+    cases = [((16, 16, 24, 16, 8), dtype, gc) for dtype in (F32, F64)
+             for gc in (18, 12, 8)]
     cases += [((1, 16, 16, 24, 16, 8), F32, 18)]
-    cases += [(shape, F64, gc) for shape in ((16, 16, 24, 16, 32),
-                                             (32, 32, 24, 32, 32))
-              for gc in (18, 12, 8)]
-    assert _policy_taken(monkeypatch, cases) == ["resident", "unfused"] * 9
+    assert _policy_taken(monkeypatch, cases) == ["resident", "unfused"] * 7
 
 
 def test_auto_policy_streams_single_sources_on_large_lattices(monkeypatch):
-    """``auto`` takes B3 where B3 measured faster in f32: every block of
-    sources with full links (2, 4 and 12 at wilson-64x16x16x8 and
-    wilson-64x32x32x16, 12 at 16^4), and one source on the long t-rows
-    of wilson-64x16x16x8 and wilson-64x32x32x16 with each link form."""
-    cases = [(shape, F32, gc) for shape in ((16, 16, 24, 16, 32),
-                                            (32, 32, 24, 32, 32))
-             for gc in (18, 12, 8)]
+    """Where ``auto`` took B3 before B1's redesign (one f32 source on the
+    long t-rows of wilson-64x16x16x8 and wilson-64x32x32x16 with each
+    link form; blocks of 2, 4 and 12 sources) and where it took B2 (one
+    f64 source there), it now takes the two-launch path, which measured
+    fastest at each of those points; B3 is never ``auto``'s choice."""
+    cases = [(shape, dtype, gc) for shape in ((16, 16, 24, 16, 32),
+                                              (32, 32, 24, 32, 32))
+             for dtype in (F32, F64) for gc in (18, 12, 8)]
     cases += [((1, 16, 16, 24, 16, 32), F32, 18),
               ((12, 16, 16, 24, 16, 8), F32, 18)]
     cases += [((n, T, Z, 24, Y, Xh), F32, 18) for n in (2, 4, 12)
               for T, Z, Y, Xh in ((16, 16, 16, 32), (32, 32, 32, 32))]
-    assert _policy_taken(monkeypatch, cases) == ["stream", "unfused"] * 14
+    assert _policy_taken(monkeypatch, cases) == ["unfused", "unfused"] * 20
 
 
 def test_stream_policy_and_unknown_policy_raise():
@@ -208,8 +327,6 @@ def test_stream_policy_and_unknown_policy_raise():
 
 def test_wrappers_refuse_what_is_not_ported():
     u_e, u_o, psi, _ = (_t(a) for a in planar_inputs("4x4x4x8", 18, 1))
-    with pytest.raises(NotImplementedError, match="halo"):
-        ws.hop_block_planar(u_o, u_e, psi, 1, halo=True)
     with pytest.raises(NotImplementedError, match="bf16"):
         ws.hop_block_planar(u_o.bfloat16(), u_e.bfloat16(), psi.bfloat16(),
                             1)
