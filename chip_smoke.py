@@ -8,9 +8,9 @@ Run from a checkout: it builds the CUDA kernels from
 ``src/repro_torch/kernels/csrc`` with ``nvcc`` (sm_90a), then
 
 1. prints the card's name and power limit (``nvidia-smi``), the build
-   time and, per kernel instantiation, registers, spill stores and
-   static shared memory; fails if an f32 full-link instantiation of any
-   kernel (B1, B2 or B3) spills;
+   time and, per kernel instantiation (f32, f64 and bf16), registers,
+   spill stores and static shared memory; fails if an f32 or bf16
+   full-link instantiation of any kernel (B1, B2 or B3) spills;
 2. holds kernel B1 (hop block) against its plain PyTorch version on the
    card over both parities, axpy on/off, gc 18/12/8, nrhs 1/4/12 (12 is
    the propagator's block), f32/f64, on (3,5,3,6), a ragged (4,5,3,10),
@@ -29,6 +29,11 @@ Run from a checkout: it builds the CUDA kernels from
    schedule, and against B2, bit for bit, over f32/f64, gc 18/12/8,
    nrhs 1/3/4/5/12, tz_offset (0,0)/(1,0) on the same shapes, plus rings
    of 4 and 5 rows (the default is 8);
+4b. holds the bf16 kernels against their plain versions (bf16 stored,
+   f32 computed, each stored tensor rounded once) within 2^-7 of
+   max|plain|, one bf16 rounding step: B1 periodic on every check shape
+   and halo mode on the halo shapes, B2 and B3 at FUSED_NRHS; the
+   two-launch Dhat and B3 must equal B2 bit for bit;
 5. drives the main path, ``repro_torch.launch.solve.main`` with cgnr,
    tol 1e-6 and backend auto (which must resolve to cuda_fused), at
    wilson-16x16x16x16 and wilson-64x16x16x8, with the launch counters
@@ -48,6 +53,15 @@ Run from a checkout: it builds the CUDA kernels from
    and with the 12-source propagator, counters set to 0 just before
    each; checks every column's residual and that every Dhat was two B1
    launches, with no B2 or B3 launch;
+7b. drives the mixed-precision path, refined solves to tol 1e-10 with
+   cgnr (``--inner-dtype``; ``REFINED``): ``auto`` with f32 and bf16
+   inner solves at 16^4 with 1 and 12 sources, and ``cuda_fused_stream``
+   with bf16 at 16^4 x 12, counters set to 0 just before each; checks
+   every column's f64 Schur residual (<= 1e-10) and full-lattice
+   residual in complex128 (<= 1e-9), and that every inner Dhat ran the
+   kernel of its path at the inner dtype (counted with its dtype at
+   ``ops.apply_dhat_planar_any``), or at a rung's dtype after a printed
+   escalation;
 8. times the unbatched solve against the batched pipeline with a block
    of one source at wilson-16x16x16x16 (the candidate removal of the
    unbatched solvers), and steady solves under each Dhat policy (two B1
@@ -62,7 +76,10 @@ Run from a checkout: it builds the CUDA kernels from
    and with one source in f64 and f32 with each link form), and the
    two-launch B1 Dhat at wilson-64x32x32x16, where the odd intermediate
    (100 MB in f32) no longer fits the 50 MB L2; then B1 at ``B1_POINTS``
-   (halo mode included) beside its bound.  With ``--parent-log FILE``
+   (halo mode included) beside its bound; then the steady refined
+   solves against a pure-f64 ``cuda_fused`` solve to the same 1e-10, and
+   the bf16 kernels beside the f32 ones at ``BF16_POINTS`` with their
+   bf16 bounds.  With ``--parent-log FILE``
    (repeatable), the output of other runs in the same call (the parent
    commit's ``chip_smoke.py``; ``tools/time_tree.py`` on another tree)
    gives their times at each policy and B1 point beside this run's.
@@ -87,6 +104,11 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 ATOL = {"f32": 5e-5, "f64": 1e-10}
+# bf16 kernels against their plain versions: both round nearly equal f32
+# values to bf16, so they lie at most one rounding step apart, 2^-7 of
+# max|plain|.
+BF16_RTOL = 2.0 ** -7
+REAL = {"f32": "float32", "f64": "float64", "bf16": "bfloat16"}
 KAPPA = 0.13
 CHECK_SHAPES = {               # (T, Z, Y, X) full lattice
     "odd-3x5x3x6": (3, 5, 3, 6),
@@ -143,9 +165,26 @@ B1_POINTS = (
     (BIG_LATTICE[0], 1, "f64", 18, False),
     ("wilson-16x16x16x16", 1, "f32", 18, True),
 )
+# The mixed-precision path: refined cgnr solves to REFINED_TOL at
+# REFINED_LATTICE, as (backend, inner dtype, inner tol, nrhs, the Dhat
+# kernel the backend takes there).  Inner tols: the reference's default
+# 1e-4 for f32, its bf16 test value 1e-3 for bf16.
+REFINED_TOL = 1e-10
+REFINED_LATTICE = "wilson-16x16x16x16"
+REFINED = (("auto", "f32", 1e-4, 1, "dhat_planar_fused"),
+           ("auto", "f32", 1e-4, 12, "hop_block_planar"),
+           ("auto", "bf16", 1e-3, 1, "dhat_planar_fused"),
+           ("auto", "bf16", 1e-3, 12, "hop_block_planar"),
+           ("cuda_fused_stream", "bf16", 1e-3, 12,
+            "dhat_planar_fused_stream"))
+# (lattice, nrhs) where the bf16 kernels are timed beside the f32 ones.
+BF16_POINTS = (("wilson-16x16x16x16", 1), ("wilson-16x16x16x16", 12),
+               ("wilson-64x16x16x8", 1))
 # Published H100 SXM peaks (NVIDIA data sheet, dense, no tensor cores, at
 # the full 700 W power limit): the bound of every kernel is taken at them.
-PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
+# bf16 kernels compute in f32 registers, so their operations count at the
+# f32 rate.
+PEAK_FLOPS = {"f32": 67e12, "f64": 34e12, "bf16": 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -168,7 +207,7 @@ def fields(shape, dtype, device, seed):
     gen = torch.Generator().manual_seed(seed)
     U = su3.random_gauge(gen, shape, dtype=torch.complex64, device=device)
     U_e, U_o = evenodd.pack_gauge(U)
-    real = torch.float32 if dtype == "f32" else torch.float64
+    real = getattr(torch, REAL[dtype])
     u_e = layout.gauge_to_planar(U_e, real)
     u_o = layout.gauge_to_planar(U_o, real)
     gauges = {gc: (layout.gauge_compress_planar(u_e, mode),
@@ -178,8 +217,9 @@ def fields(shape, dtype, device, seed):
     def spinor(nrhs):
         T, Z, Y, X = shape
         lead = (nrhs,) if nrhs > 1 else ()
+        draw = torch.float32 if real == torch.bfloat16 else real
         return torch.randn(lead + (T, Z, 24, Y, X // 2), generator=gen,
-                           dtype=real).to(device)
+                           dtype=draw).to(device=device, dtype=real)
     return gauges, spinor
 
 
@@ -188,11 +228,12 @@ def ptxas_summary(log):
     (kernel<type, gc, D[, halo]>, registers, spill store bytes, static
     shared memory; the kernels take their tile's shared memory
     dynamically, printed per shape by the timing phase)."""
-    names = {"f": "float", "d": "double"}
+    names = {"f": "float", "d": "double", "13__nv_bfloat16": "bf16"}
     out, current, spill, smem = [], None, "0", "0"
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '\S*?(hop_kernel|"
-                      r"dhat_fused_kernel|dhat_stream_kernel)I([fd])Li(\d+)"
+                      r"dhat_fused_kernel|dhat_stream_kernel)"
+                      r"I([fd]|13__nv_bfloat16)Li(\d+)"
                       r"ELi(\d+)E(?:Lb([01])E)?", line)
         if m:
             current = (f"{m.group(1)}<{names[m.group(2)]}, gc={m.group(3)},"
@@ -214,8 +255,8 @@ def ptxas_summary(log):
 
 
 def phase_build():
-    """Build the kernels; fails if an f32 full-link instantiation of any
-    kernel (the form every driven path launches) spills."""
+    """Build the kernels; fails if an f32 or bf16 full-link instantiation
+    of any kernel (the forms the driven paths launch) spills."""
     from repro_torch.kernels import build
     t0 = time.time()
     result = build.build_all(verbose=True)
@@ -225,9 +266,10 @@ def phase_build():
     for name, info in result.items():
         for line in ptxas_summary(info["log"]):
             print(f"  ptxas {line}")
-            if (re.match(r"\w+_kernel<float, gc=18,", line)
+            if (re.match(r"\w+_kernel<(float|bf16), gc=18,", line)
                     and " 0 B spill" not in line):
-                raise PhaseError(f"f32 full-link kernel spills: {line}")
+                raise PhaseError(f"f32/bf16 full-link kernel spills: "
+                                 f"{line}")
 
 
 def parent_times(paths):
@@ -498,12 +540,106 @@ def phase_b3(device):
     return worst
 
 
-def drive(argv, what):
+def phase_bf16(device):
+    """The bf16 kernels against their plain versions within BF16_RTOL of
+    max|plain|: B1 periodic (both parities, axpy on/off, nrhs 1/4/12) on
+    every check shape and in halo mode on the halo shapes with four
+    tz_offsets; B2 and B3 at FUSED_NRHS, where the two-launch Dhat and B3
+    must equal B2 bit for bit.  Returns ``{kernel: (max abs err, max
+    err / max|plain|)}``."""
+    import torch
+
+    from repro_torch.kernels import ops, ref, wilson_stencil as ws
+    worst = {k: [0.0, 0.0] for k in ("hop_block_planar", "dhat_planar_fused",
+                                     "dhat_planar_fused_stream")}
+    cases = [0]
+
+    def hold(kernel, got, want, what):
+        torch.cuda.synchronize()
+        check(got.dtype == want.dtype == torch.bfloat16,
+              f"bf16 {what}: dtype {got.dtype}")
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        worst[kernel][0] = max(worst[kernel][0], err)
+        worst[kernel][1] = max(worst[kernel][1], err / scale)
+        cases[0] += 1
+        check(err <= BF16_RTOL * scale, f"bf16 {what}: max abs err "
+                                        f"{err:.3e} > 2^-7 x {scale:.3e}")
+
+    pairs = 0
+    for sname, shape in CHECK_SHAPES.items():
+        gauges, spinor = fields(shape, "bf16", device, seed=21)
+        for gc, (u_e, u_o) in gauges.items():
+            for nrhs in (1, 4, 12):
+                src, psi0 = spinor(nrhs), spinor(nrhs)
+                for parity in (0, 1):
+                    u_out, u_in = (u_o, u_e) if parity else (u_e, u_o)
+                    for axpy in (None, (-0.37, psi0)):
+                        hold("hop_block_planar",
+                             ws.hop_block_planar(u_out, u_in, src, parity,
+                                                 axpy=axpy),
+                             ref.hop_block_planar_ref(u_out, u_in, src,
+                                                      parity, axpy=axpy),
+                             f"B1 {sname} gc={gc} nrhs={nrhs} parity="
+                             f"{parity} axpy={axpy is not None}")
+            for nrhs in FUSED_NRHS:
+                psi = spinor(nrhs)
+                b2 = ws.dhat_planar_fused(u_e, u_o, psi, KAPPA)
+                hold("dhat_planar_fused", b2,
+                     ref.dhat_planar_ref(u_e, u_o, psi, KAPPA),
+                     f"B2 {sname} gc={gc} nrhs={nrhs}")
+                b3 = ws.dhat_planar_fused_stream(u_e, u_o, psi, KAPPA)
+                hold("dhat_planar_fused_stream", b3,
+                     ref.dhat_planar_stream_ref(u_e, u_o, psi, KAPPA),
+                     f"B3 {sname} gc={gc} nrhs={nrhs}")
+                two = ops.apply_dhat_planar(u_e, u_o, psi, KAPPA)
+                torch.cuda.synchronize()
+                pairs += 1
+                check(torch.equal(two, b2) and torch.equal(b3, b2),
+                      f"bf16 {sname} gc={gc} nrhs={nrhs}: two-launch Dhat "
+                      f"equal to B2 {torch.equal(two, b2)}, B3 equal to B2 "
+                      f"{torch.equal(b3, b2)} (both must be bit for bit)")
+        print(f"bf16 B1, B2, B3 vs plain, two-launch and B3 equal to B2: "
+              f"{sname}: ok (worst err / max|plain| so far "
+              f"{max(w[1] for w in worst.values()):.3e}, limit 2^-7)",
+              flush=True)
+    for sname in HALO_SHAPES:
+        gauges, spinor, centre = halo_fields(CHECK_SHAPES[sname], "bf16",
+                                             device, seed=22)
+        for gc, (u_e, u_o) in gauges.items():
+            for nrhs in (1, 4, 12):
+                src = spinor(nrhs)
+                psi0 = centre(spinor(nrhs), 1 if nrhs > 1 else 0)
+                for i, tz in enumerate(HALO_TZ):
+                    axpy = (-0.37, psi0) if i % 2 else None
+                    for parity in (0, 1):
+                        u_out, u_in = (u_o, u_e) if parity else (u_e, u_o)
+                        u_out = centre(u_out, 1)
+                        hold("hop_block_planar",
+                             ws.hop_block_planar(u_out, u_in, src, parity,
+                                                 tz_offset=tz, halo=True,
+                                                 axpy=axpy),
+                             ref.hop_block_planar_ref(
+                                 u_out, u_in, src, parity, tz_offset=tz,
+                                 halo=True, axpy=axpy),
+                             f"B1 halo {sname} gc={gc} nrhs={nrhs} "
+                             f"parity={parity} tz={tz}")
+    print(f"bf16: {cases[0]} cases against the plain versions (halo mode "
+          f"included), worst " + ", ".join(
+              f"{k} {a:.3e} abs / {r:.3e} of max|plain|"
+              for k, (a, r) in worst.items())
+          + f" (limit 2^-7 = {BF16_RTOL:.3e}); two-launch Dhat and B3 "
+          f"equal to B2 bit for bit in {pairs} cases", flush=True)
+    return worst
+
+
+def drive(argv, what, full_tol=1e-5):
     """``repro_torch.launch.solve.main(argv)`` with the launch counters
     set to 0 just before and read just after, and its ``Dhat``
     applications counted at the policy entry point
-    (``ops.apply_dhat_planar_any``); the run's summary with
-    ``launches`` and ``dhats`` added."""
+    (``ops.apply_dhat_planar_any``), by the dtype of their vector; checks
+    every column's full-lattice residual against ``full_tol``; the run's
+    summary with ``launches``, ``dhats`` and ``dhat_dtypes`` added."""
     import torch
 
     from repro_torch.kernels import ops, wilson_stencil as ws
@@ -511,10 +647,13 @@ def drive(argv, what):
     print(f"{what}: python -m repro_torch.launch.solve {' '.join(argv)}",
           flush=True)
     dhats = [0]
+    dtypes = {}
     policy_entry = ops.apply_dhat_planar_any
 
     def counted(*args, **kwargs):
         dhats[0] += 1
+        name = str(args[2].dtype).replace("torch.", "")
+        dtypes[name] = dtypes.get(name, 0) + 1
         return policy_entry(*args, **kwargs)
     ops.apply_dhat_planar_any = counted
     try:
@@ -524,12 +663,13 @@ def drive(argv, what):
         launches = dict(ws.LAUNCHES)
     finally:
         ops.apply_dhat_planar_any = policy_entry
-    print(f"{what}: {dhats[0]} Dhat applications, launches {launches}",
-          flush=True)
+    print(f"{what}: {dhats[0]} Dhat applications (by dtype {dtypes}), "
+          f"launches {launches}", flush=True)
     for i, rels in enumerate(out["col_residuals"]):
-        check(max(rels) <= 1e-5, f"{what} solve {i}: column full-lattice "
-                                 f"residuals {rels} (each <= 1e-5)")
-    return dict(out, launches=launches, dhats=dhats[0])
+        check(max(rels) <= full_tol,
+              f"{what} solve {i}: column full-lattice residuals {rels} "
+              f"(each <= {full_tol:g})")
+    return dict(out, launches=launches, dhats=dhats[0], dhat_dtypes=dtypes)
 
 
 def check_path(what, run, kernel, n_solves):
@@ -622,6 +762,54 @@ def phase_cuda_hop():
     return runs
 
 
+def phase_refined():
+    """The mixed-precision path: each of REFINED through the CLI
+    (``--inner-dtype``, tol 1e-10, cgnr), counters set to 0 just before.
+    Every column's f64 Schur residual must reach REFINED_TOL and its
+    full-lattice residual (complex128) ten times that; every inner Dhat
+    must run the path's kernel (one B2 or B3 launch, or two B1 launches;
+    the outer operator and hops are complex128 PyTorch, no kernel) at the
+    inner dtype, or at the dtype of a rung the outer loop escalated to,
+    which is printed."""
+    runs = {}
+    for backend, dtype, inner_tol, nrhs, kernel in REFINED:
+        what = f"refined {backend} {dtype} x{nrhs}"
+        run = drive(["--lattice", REFINED_LATTICE, "--nrhs", str(nrhs),
+                     "--method", "cgnr", "--tol", f"{REFINED_TOL:g}",
+                     "--backend", backend, "--inner-dtype", dtype,
+                     "--inner-tol", f"{inner_tol:g}", "--n-solves", "1",
+                     "--seed", "1", "--device", "cuda"], what,
+                    full_tol=10 * REFINED_TOL)
+        (res,) = run["results"]
+        rel = [float(r) for r in (res.residual if nrhs > 1
+                                  else [res.residual])]
+        check(max(rel) <= REFINED_TOL, f"{what}: f64 Schur residuals {rel} "
+                                       f"(each <= {REFINED_TOL:g})")
+        rungs = [dtype] + list(res.escalations)
+        allowed = {REAL[r] for r in rungs}
+        check(set(run["dhat_dtypes"]) <= allowed
+              and run["dhat_dtypes"].get(REAL[dtype], 0) > 0,
+              f"{what}: inner Dhats by dtype {run['dhat_dtypes']}, rungs "
+              f"{rungs}")
+        want = {"hop_block_planar": 0, "dhat_planar_fused": 0,
+                "dhat_planar_fused_stream": 0}
+        want[kernel] = (2 if kernel == "hop_block_planar" else 1) * \
+            run["dhats"]
+        check(run["launches"] == want,
+              f"{what}: launches {run['launches']} for {run['dhats']} "
+              f"Dhats; expected {want}, every Dhat through {kernel}")
+        print(f"{what}: outer {res.outer_iterations}, f64_applies "
+              f"{res.f64_applies}, inner iterations {res.inner_iterations}"
+              f", escalations {list(res.escalations) or 'none'}; f64 Schur "
+              f"residual max {max(rel):.2e}, full-lattice max "
+              f"{max(run['col_residuals'][0]):.2e}; every inner Dhat "
+              f"through {kernel} at {dtype}"
+              + (f" or a rung's dtype ({rungs})" if res.escalations
+                 else ""), flush=True)
+        runs[(backend, dtype, nrhs)] = run
+    return runs
+
+
 def phase_block_of_one(device, shape=None, n_solves=6):
     """The unbatched solve against the batched pipeline given the same
     source as a block of one (``solve_block``), on one session at the
@@ -690,15 +878,7 @@ def phase_policy_solves(device, n_solves=6):
         gen = torch.Generator().manual_seed(1)
         U_e, U_o = evenodd.pack_gauge(su3.random_gauge(gen, shape,
                                                        device=device))
-        lead = (nrhs,) if nrhs > 1 else ()
-        eta = torch.complex(torch.randn(lead + shape + (4, 3), generator=gen),
-                            torch.randn(lead + shape + (4, 3), generator=gen))
-        packed = [evenodd.pack(c) for c in eta.to(device).reshape(
-            -1, *shape, 4, 3)]
-        ee = torch.stack([e for e, _ in packed])
-        eo = torch.stack([o for _, o in packed])
-        if nrhs == 1:
-            ee, eo = ee[0], eo[0]
+        ee, eo = _sources(shape, nrhs, device, gen, torch.complex64)
         sessions = {
             policy: api.SolveSession(
                 api.WilsonMatrix.bind(U_e, U_o, KAPPA, backend=api.BackendSpec(
@@ -879,11 +1059,13 @@ def phase_times(device, paths, parent=None):
                                              itemsize=itemsize,
                                              gauge_comps=gc)
         wall = {k: call_ms(cands[k], 20) for k in cands}
+        # One call each: the plain B3 walks its schedule row by row (0.5-2
+        # s a call here), and its time is no yardstick of speed.
         plain = {
             "B2": call_ms(lambda: ref.dhat_planar_ref(u_e, u_o, psi,
-                                                      KAPPA), 3, warmup=1),
+                                                      KAPPA), 1, warmup=0),
             "B3": call_ms(lambda: ref.dhat_planar_stream_ref(
-                u_e, u_o, psi, KAPPA), 3, warmup=1)}
+                u_e, u_o, psi, KAPPA), 1, warmup=0)}
         scratch = itemsize * psi.numel()
         ring = ws.stream_ring_bytes(psi.shape, itemsize, ws.STREAM_RING_ROWS)
         launched = paths.get((lattice, nrhs, dtype, gc), {})
@@ -1010,6 +1192,206 @@ def time_b1(device, parent=None, points=B1_POINTS):
     return rows
 
 
+def _sources(shape, nrhs, device, gen, dtype):
+    """Even/odd halves of ``nrhs`` random complex sources on ``shape``
+    (a leading axis for nrhs > 1)."""
+    import torch
+
+    from repro_torch.core import evenodd
+    real = torch.float64 if dtype == torch.complex128 else torch.float32
+    lead = (nrhs,) if nrhs > 1 else ()
+    eta = torch.complex(torch.randn(lead + shape + (4, 3), generator=gen,
+                                    dtype=real),
+                        torch.randn(lead + shape + (4, 3), generator=gen,
+                                    dtype=real))
+    packed = [evenodd.pack(c) for c in eta.to(device).reshape(-1, *shape,
+                                                             4, 3)]
+    ee = torch.stack([e for e, _ in packed])
+    eo = torch.stack([o for _, o in packed])
+    return (ee, eo) if nrhs > 1 else (ee[0], eo[0])
+
+
+def phase_refined_times(device, n_solves=4):
+    """Steady refined solves (tol 1e-10, cgnr) against a pure-f64
+    ``cuda_fused`` solve to the same tolerance, one session each, solves
+    alternating, at REFINED_LATTICE with 1 and 12 sources: median wall
+    time after the first solve, outer passes, inner iterations,
+    ``f64_applies`` and escalations (the pure-f64 solve: its iterations,
+    about two f64 Dhats each); and the wall time of one application of
+    the refined solves' outer operator (the complex128 ``Dhat`` of
+    ``core/evenodd``, mapped over the sources), which each outer pass
+    pays once.  Returns ``{(nrhs, label): row}``."""
+    import torch
+
+    from repro_torch import api
+    from repro_torch.core import evenodd, su3
+    shape = CHECK_SHAPES[REFINED_LATTICE]
+    out = {}
+    for nrhs in (1, 12):
+        gen = torch.Generator().manual_seed(2)
+        U_e, U_o = evenodd.pack_gauge(su3.random_gauge(gen, shape,
+                                                       device=device))
+        ee, eo = _sources(shape, nrhs, device, gen, torch.complex128)
+
+        def session(backend, dtype, spec):
+            return api.SolveSession(api.WilsonMatrix.bind(
+                U_e, U_o, KAPPA, backend=api.BackendSpec(backend,
+                                                         dtype=dtype)),
+                spec)
+        sessions = {"pure f64": session("cuda_fused", "f64", api.SolveSpec(
+            method="cgnr", tol=REFINED_TOL))}
+        for backend, dtype, inner_tol, n, _ in REFINED:
+            if n == nrhs:
+                sessions[f"refined {backend} {dtype}"] = session(
+                    "cuda_fused" if backend == "auto" else backend, dtype,
+                    api.SolveSpec(method="cgnr", tol=REFINED_TOL,
+                                  inner_dtype=dtype, inner_tol=inner_tol))
+        U64 = [u.to(torch.complex128) for u in (U_e, U_o)]
+
+        def outer_dhat():
+            def one(v):
+                return evenodd.apply_dhat(*U64, v, KAPPA)
+            return torch.func.vmap(one)(ee) if nrhs > 1 else one(ee)
+        outer_ms = call_ms(outer_dhat, 3, warmup=1)
+        print(f"refined time: {REFINED_LATTICE} x {nrhs}: one application "
+              f"of the outer complex128 Dhat (core/evenodd) "
+              f"{outer_ms:.2f} ms wall", flush=True)
+        out[(nrhs, "outer Dhat")] = {"ms": outer_ms}
+        times = {k: [] for k in sessions}
+        last = {}
+        for _ in range(n_solves):
+            for label, sess in sessions.items():
+                t0 = time.perf_counter()
+                _, _, res = sess.solve(ee, eo)
+                torch.cuda.synchronize()
+                times[label].append(time.perf_counter() - t0)
+                last[label] = res
+        for label, res in last.items():
+            rel = float(torch.as_tensor(res.residual).max())
+            check(bool(torch.as_tensor(res.converged).all())
+                  and rel <= 10 * REFINED_TOL,
+                  f"{label} x{nrhs}: residual {rel:.2e}, converged "
+                  f"{res.converged}")
+            row = {"steady_ms": statistics.median(times[label][1:]) * 1e3,
+                   "residual": rel}
+            if hasattr(res, "outer_iterations"):
+                row.update(outer=res.outer_iterations,
+                           inner=res.inner_iterations,
+                           f64_applies=res.f64_applies,
+                           escalations=list(res.escalations))
+            else:
+                row.update(iterations=int(torch.as_tensor(
+                    res.iterations).max()))
+            out[(nrhs, label)] = row
+            print(f"refined time: {REFINED_LATTICE} x {nrhs}, tol "
+                  f"{REFINED_TOL:g}, {label}: steady solve "
+                  f"{row['steady_ms']:.2f} ms (median of {n_solves - 1} "
+                  f"after the first), residual {rel:.2e}, "
+                  + (f"outer {row['outer']}, inner iterations "
+                     f"{row['inner']}, f64_applies {row['f64_applies']}, "
+                     f"escalations {row['escalations'] or 'none'}"
+                     if "outer" in row else
+                     f"iterations {row['iterations']} (about "
+                     f"{2 * row['iterations'] + 2} f64 Dhats)"), flush=True)
+        del sessions, last
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_bf16(device):
+    """The bf16 kernels beside the f32 ones at BF16_POINTS (full links):
+    B1, B2, B3 and the two-launch Dhat, device time (median of 50
+    CUDA-event readings, run order alternating), the bound with bf16
+    bytes (operations at the f32 rate: the kernels compute in f32), its
+    share, the plain version's wall time per call, and whether ``auto``'s
+    choice is the fastest bf16 Dhat there.  Returns ``{(lattice, nrhs):
+    {kernel: row}}``."""
+    import torch
+
+    from repro_torch.kernels import ops, ref, wilson_stencil as ws
+    out = {}
+    for lattice, nrhs in BF16_POINTS:
+        T, Z, Y, X = shape = CHECK_SHAPES[lattice]
+        sites = T * Z * Y * (X // 2)
+        cands, plains, bounds = {}, {}, {}
+        for dtype in ("f32", "bf16"):
+            gauges, spinor = fields(shape, dtype, device, seed=23)
+            u_e, u_o = gauges[18]
+            psi = spinor(nrhs)
+            del gauges
+            cands.update({
+                f"B1 {dtype}": lambda u_e=u_e, u_o=u_o, psi=psi:
+                    ws.hop_block_planar(u_e, u_o, psi, 0),
+                f"B2 {dtype}": lambda u_e=u_e, u_o=u_o, psi=psi:
+                    ws.dhat_planar_fused(u_e, u_o, psi, KAPPA),
+                f"B3 {dtype}": lambda u_e=u_e, u_o=u_o, psi=psi:
+                    ws.dhat_planar_fused_stream(u_e, u_o, psi, KAPPA),
+                f"two-launch {dtype}": lambda u_e=u_e, u_o=u_o, psi=psi:
+                    ops.apply_dhat_planar(u_e, u_o, psi, KAPPA)})
+            if dtype == "bf16":
+                plains = {
+                    "B1": lambda u_e=u_e, u_o=u_o, psi=psi:
+                        ref.hop_block_planar_ref(u_e, u_o, psi, 0),
+                    "B2": lambda u_e=u_e, u_o=u_o, psi=psi:
+                        ref.dhat_planar_ref(u_e, u_o, psi, KAPPA),
+                    "B3": lambda u_e=u_e, u_o=u_o, psi=psi:
+                        ref.dhat_planar_stream_ref(u_e, u_o, psi, KAPPA)}
+            itemsize = 2 if dtype == "bf16" else 4
+            m = ws.hop_traffic_model(T, Z, Y, X // 2, nrhs=nrhs,
+                                     itemsize=itemsize)
+            dhat_bytes = 2 * m["bytes_spinor"] + m["bytes_gauge"]
+            dhat_flops = 2 * m["flops"] + 2 * 24 * sites * nrhs
+            for k, (nbytes, flops) in {
+                    "B1": (m["bytes_total"], m["flops"]),
+                    "Dhat": (dhat_bytes, dhat_flops)}.items():
+                t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+                t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+                bounds[(k, dtype)] = (max(t_bytes, t_ops), "bytes"
+                                      if t_bytes >= t_ops else "operations",
+                                      nbytes)
+        order = list(cands) + list(reversed(cands))
+        times = [(label, device_ms(cands[label], 50)) for label in order]
+        med = {k: statistics.median(t for label, t in times if label == k)
+               for k in cands}
+        plain_ms = {k: call_ms(f, 1, warmup=0) for k, f in plains.items()}
+        rows = {}
+        for label, ms in med.items():
+            kernel, dtype = label.split()
+            bound, by, nbytes = bounds[("B1" if kernel == "B1" else "Dhat",
+                                        dtype)]
+            rows[label] = {"ms": ms, "bound_ms": bound, "bound_by": by,
+                           "bytes": nbytes,
+                           "plain_ms": plain_ms.get(kernel)
+                           if dtype == "bf16" else None}
+        auto = ops.auto_policy(_planar_shape(shape, nrhs))
+        auto_label = {"resident": "B2", "unfused": "two-launch",
+                      "stream": "B3"}[auto]
+        dhats = {k: med[f"{k} bf16"] for k in ("B2", "B3", "two-launch")}
+        fastest = min(dhats, key=dhats.get)
+        kinds = ("B1", "B2", "B3", "two-launch")
+        share = {k: rows[k]["bound_ms"] / rows[k]["ms"] for k in rows}
+        verdict = "is" if fastest == auto_label else "is not"
+        print(f"time: bf16 {lattice} nrhs={nrhs} gc=18: device us in run "
+              f"order " + ", ".join(f"{k} {t * 1e3:.1f}" for k, t in times)
+              + "; bf16 " + ", ".join(
+                  f"{k} {rows[k + ' bf16']['ms'] * 1e3:.1f} us = "
+                  f"{share[k + ' bf16']:.0%} of "
+                  f"{rows[k + ' bf16']['bound_ms'] * 1e3:.1f} us "
+                  f"({rows[k + ' bf16']['bound_by']})" for k in kinds)
+              + "; f32 " + ", ".join(
+                  f"{k} {share[k + ' f32']:.0%} of "
+                  f"{rows[k + ' f32']['bound_ms'] * 1e3:.1f} us"
+                  for k in kinds)
+              + "; plain bf16 " + ", ".join(
+                  f"{k} {v * 1e3:.1f} us" for k, v in plain_ms.items())
+              + f"; auto takes {auto_label}, fastest bf16 Dhat {fastest}"
+              f" (auto {verdict} fastest)", flush=True)
+        out[(lattice, nrhs)] = rows
+        del cands, plains
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Smoke test of the PyTorch/CUDA port on one GPU.")
@@ -1056,9 +1438,11 @@ def main(argv=None):
     worst = {"hop_block_planar": timed("b1", phase_b1, device),
              "dhat_planar_fused": timed("b2", phase_b2, device),
              "dhat_planar_fused_stream": timed("b3", phase_b3, device)}
+    worst_bf16 = timed("bf16", phase_bf16, device)
     runs = timed("slice", phase_slice)
     runs2 = timed("slice2", phase_slice2)
     timed("cuda_hop", phase_cuda_hop)
+    refined = timed("refined", phase_refined)
     timed("block_of_one", phase_block_of_one, device)
     timed("policy_solves", phase_policy_solves, device)
     copy_bps = copy_bandwidth(device)
@@ -1074,6 +1458,8 @@ def main(argv=None):
         for k in runs2["auto"]["launches"]}
     rows = timed("times", phase_times, device, paths, parent)
     timed("b1_times", time_b1, device, parent)
+    timed("refined_times", phase_refined_times, device)
+    bf16_rows = timed("bf16_times", time_bf16, device)
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phase_s.items()),
           flush=True)
@@ -1117,6 +1503,27 @@ def main(argv=None):
         "bound_by": row["bound_by"], "library_ms": None,
         "copy_bytes_per_s": copy_bps,
         "lattice": lattice, "nrhs": nrhs, "dtype": "f32"})
+    # The mixed-precision path: each kernel's launches on the refined
+    # bf16 runs, and its bf16 numbers at the point that path drives it.
+    bf16_point = {"hop_block_planar": (REFINED_LATTICE, 12, "B1"),
+                  "dhat_planar_fused": (REFINED_LATTICE, 1, "B2"),
+                  "dhat_planar_fused_stream": (REFINED_LATTICE, 12, "B3")}
+    for row in kernels:
+        name = row["name"]
+        launched = sum(run["launches"][name] for (_, dtype, _), run
+                       in refined.items() if dtype == "bf16")
+        check(launched > 0, f"{name} made no launch on the refined bf16 "
+                            "path")
+        lattice, nrhs, label = bf16_point[name]
+        b = bf16_rows[(lattice, nrhs)][f"{label} bf16"]
+        row.update({
+            "dtypes": ["f32", "bf16", "f64"],
+            "launches_refined_bf16": launched,
+            "max_abs_err_bf16": worst_bf16[name][0],
+            "max_rel_err_bf16": worst_bf16[name][1],
+            "ms_bf16": b["ms"], "bound_ms_bf16": b["bound_ms"],
+            "bound_by_bf16": b["bound_by"], "plain_ms_bf16": b["plain_ms"],
+            "lattice_bf16": lattice, "nrhs_bf16": nrhs})
     print(f"total: {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,9 +3,13 @@
 A :class:`WilsonMatrix` binds ``(gauge, kappa, BackendSpec)`` exactly
 once: the backend's layout conversion (complex -> planar planes, link
 compression) and its policy happen at :meth:`WilsonMatrix.bind`, on the
-gauge's device, and every application reuses the bound state.
+gauge's device, and every application reuses the bound state.  The
+exact complex gauge is kept beside it for the f64 operator of refined
+solves (:meth:`WilsonMatrix.gauge_complex`).
 """
 from __future__ import annotations
+
+import torch
 
 from .. import backends
 from .specs import BackendSpec, LatticeSpec
@@ -29,12 +33,13 @@ class WilsonMatrix:
     """
 
     def __init__(self, ops, kappa: float, lattice: LatticeSpec,
-                 backend: BackendSpec, device):
+                 backend: BackendSpec, device, gauge=None):
         self.ops = ops
         self.kappa = float(kappa)
         self.lattice = lattice
         self.backend = backend
         self.device = device
+        self._exact_gauge = gauge
 
     @classmethod
     def bind(cls, U_e, U_o, kappa: float,
@@ -48,7 +53,20 @@ class WilsonMatrix:
         lattice = LatticeSpec.from_eo_gauge(U_e)
         ops = backends.make_wilson_ops(spec.name, U_e, U_o,
                                        **spec.factory_opts())
-        return cls(ops, kappa, lattice, spec, U_e.device)
+        # The planar leaves are rounded to the compute dtype (bf16 ones
+        # lie ~1e-3 off the field), so refined solves take their f64
+        # operator from the exact halves kept here.
+        return cls(ops, kappa, lattice, spec, U_e.device, gauge=(U_e, U_o))
+
+    def gauge_complex(self, dtype=torch.complex128):
+        """The complex even/odd gauge halves the matrix was bound from,
+        in ``dtype``: the field a refined solve's f64 residual targets."""
+        if self._exact_gauge is None:
+            raise ValueError(
+                "this WilsonMatrix holds no gauge field; bind it with "
+                "WilsonMatrix.bind to run refined solves")
+        U_e, U_o = self._exact_gauge
+        return U_e.to(dtype), U_o.to(dtype)
 
     @property
     def domain(self) -> str:

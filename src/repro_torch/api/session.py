@@ -6,10 +6,14 @@ Eq. 5 reconstruction) once per ``(SolveSpec, source shape, dtype)``;
 later solves of the same key reuse it.  A source with a leading
 ``nrhs`` axis takes the batched pipeline (per-column scalars and
 freezing); :meth:`SolveSession.solve_block` splits its result back per
-request.  PyTorch runs eagerly, so there
-is no trace to cache; the ``traces`` counter counts pipeline builds
-under the reference's name.  The reference's fallback counters wait for
-the resilience slice.
+request.  A spec with ``inner_dtype`` builds a mixed-precision refined
+solve instead (:func:`repro_torch.core.solver.make_refined_solve`): the
+bound matrix is its inner backend, and its escalation ladder rebinds
+the session's backend at a higher dtype where the backend takes it,
+else drops to ``torch_ref``.  PyTorch runs eagerly, so there is no
+trace to cache; the ``traces`` counter counts pipeline builds under the
+reference's name.  The reference's fallback counters wait for the
+resilience slice.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from .. import backends
 from ..core import solver as _solver
 from .matrix import WilsonMatrix
 from .specs import SolveSpec
@@ -27,14 +32,18 @@ __all__ = ["SolveSession"]
 
 
 class _CacheEntry:
-    __slots__ = ("fn", "times", "iterations", "col_iterations")
+    __slots__ = ("fn", "kind", "times", "iterations", "col_iterations",
+                 "outer", "escalations")
 
-    def __init__(self, fn):
+    def __init__(self, fn, kind: str = "plain"):
         self.fn = fn
+        self.kind = kind          # "plain" or "refined"
         self.times = []           # per-solve wall seconds, in call order
         self.iterations = []      # Krylov iterations per solve (batched:
         #                           the most of any column)
         self.col_iterations = []  # batched: per-column counts per solve
+        self.outer = []           # refined: outer passes per solve
+        self.escalations = []     # refined: rungs climbed per solve
 
 
 class SolveSession:
@@ -74,26 +83,26 @@ class SolveSession:
         entry = self._cache.get(key)
         hit = entry is not None
         if entry is None:
-            entry = _CacheEntry(_solver.make_native_solve(
-                self.matrix.ops, self.matrix.kappa, method=spec.method,
-                tol=spec.tol, max_iters=spec.max_iters,
-                recompute_every=spec.recompute_every, batched=batched,
-                guard=spec.guard,
-                stagnation_window=spec.stagnation_window,
-                max_restarts=spec.max_restarts))
+            entry = self._build(spec, batched)
             self._counters["traces"] += 1
-        ops = self.matrix.ops
-        enc = ops.to_domain_batched if batched else ops.to_domain
-        dec = ops.from_domain_batched if batched else ops.from_domain
-        x, v_xi_o, res = entry.fn(enc(eta_e), enc(eta_o))
-        xi_e = dec(x).to(eta_e.dtype)
-        xi_o = dec(v_xi_o).to(eta_o.dtype)
+        if entry.kind == "refined":
+            xi_e, xi_o, res = entry.fn(eta_e, eta_o)
+        else:
+            ops = self.matrix.ops
+            enc = ops.to_domain_batched if batched else ops.to_domain
+            dec = ops.from_domain_batched if batched else ops.from_domain
+            x, v_xi_o, res = entry.fn(enc(eta_e), enc(eta_o))
+            xi_e = dec(x).to(eta_e.dtype)
+            xi_o = dec(v_xi_o).to(eta_o.dtype)
         self._sync()
         # Commit cache and counters only after the solve ran.
         self._cache[key] = entry
         self._counters["cache_hits" if hit else "cache_misses"] += 1
         self._counters["solves"] += 1
-        if batched:
+        if entry.kind == "refined":
+            entry.outer.append(int(res.outer_iterations))
+            entry.escalations.append(tuple(res.escalations))
+        elif batched:
             cols = [int(i) for i in res.iterations]
             entry.col_iterations.append(cols)
             entry.iterations.append(max(cols))
@@ -101,6 +110,52 @@ class SolveSession:
             entry.iterations.append(int(res.iterations))
         entry.times.append(time.perf_counter() - t0)
         return xi_e, xi_o, res._replace(x=xi_e)
+
+    def _escalation_factory(self):
+        """The refined solve's ``bops_factory``: the session's backend
+        rebound at the rung's dtype where its capabilities list it (so
+        the f64 rung runs the f64 kernels), else ``torch_ref`` at the
+        matching complex dtype."""
+        matrix = self.matrix
+
+        def factory(rung: str):
+            bspec = matrix.backend
+            caps = backends.backend_info(bspec.name)
+            U_e, U_o = matrix.gauge_complex(torch.complex128)
+            if rung in caps.dtypes:
+                return backends.make_wilson_ops(
+                    bspec.name, U_e, U_o, **dataclasses.replace(
+                        bspec, dtype=rung).factory_opts())
+            cdt = torch.complex128 if rung == "f64" else torch.complex64
+            return backends.make_wilson_ops("torch_ref", U_e.to(cdt),
+                                            U_o.to(cdt))
+
+        return factory
+
+    def _build(self, spec: SolveSpec, batched: bool) -> _CacheEntry:
+        m = self.matrix
+        if spec.inner_dtype is not None:
+            # Mixed-precision refinement: the bound matrix is the inner
+            # backend (bound at the inner dtype); the f64 operator takes
+            # the exact gauge.
+            U64_e, U64_o = m.gauge_complex()
+            return _CacheEntry(_solver.make_refined_solve(
+                m.ops, U64_e, U64_o, m.kappa, method=spec.method,
+                tol=spec.tol, max_iters=spec.max_iters,
+                recompute_every=spec.recompute_every,
+                inner_tol=spec.inner_tol, max_outer=spec.max_outer,
+                batched=batched, guard=spec.guard,
+                stagnation_window=spec.stagnation_window,
+                max_restarts=spec.max_restarts,
+                inner_dtype=spec.inner_dtype, escalate=spec.escalate,
+                bops_factory=(self._escalation_factory()
+                              if spec.escalate else None)), "refined")
+        return _CacheEntry(_solver.make_native_solve(
+            m.ops, m.kappa, method=spec.method, tol=spec.tol,
+            max_iters=spec.max_iters, recompute_every=spec.recompute_every,
+            batched=batched, guard=spec.guard,
+            stagnation_window=spec.stagnation_window,
+            max_restarts=spec.max_restarts))
 
     def solve_block(self, eta_e, eta_o, spec: Optional[SolveSpec] = None,
                     *, bounds=None):
@@ -127,24 +182,32 @@ class SolveSession:
 
     def stats(self) -> dict:
         """Totals plus per-key timings: ``steady_state_s`` is the median
-        wall time of a key's solves after its first; batched keys add
-        ``col_iterations``, the per-column counts of each solve."""
+        wall time of a key's solves after its first.  Plain keys
+        (``kind: "plain"``) list ``iterations``, and batched ones
+        ``col_iterations``, the per-column counts of each solve; refined
+        keys (``kind: "refined"``) list ``outer_iterations`` and
+        ``escalations`` per solve."""
         keys = {}
         for (spec, shape, dtype), entry in self._cache.items():
             steady = sorted(entry.times[1:])
             key = "|".join([spec.cache_token(), f"shape={shape}",
                             f"dtype={dtype}"])
-            keys[key] = {
-                "kind": "plain",
+            row = {
+                "kind": entry.kind,
                 "solves": len(entry.times),
                 "first_solve_s": entry.times[0] if entry.times else None,
                 "steady_state_s": (steady[len(steady) // 2]
                                    if steady else None),
-                "iterations": list(entry.iterations),
             }
-            if entry.col_iterations:
-                keys[key]["col_iterations"] = [
-                    list(c) for c in entry.col_iterations]
+            if entry.kind == "refined":
+                row["outer_iterations"] = list(entry.outer)
+                row["escalations"] = [list(e) for e in entry.escalations]
+            else:
+                row["iterations"] = list(entry.iterations)
+                if entry.col_iterations:
+                    row["col_iterations"] = [
+                        list(c) for c in entry.col_iterations]
+            keys[key] = row
         return {
             **self._counters,
             "backend": self.matrix.backend.name,

@@ -5,11 +5,11 @@
 * :class:`BackendSpec` — which operator backend, at which compute dtype,
   validated against the registry's capabilities; ``"auto"`` resolves by
   device (``cuda_fused`` on ``cuda``, ``torch_ref`` on ``cpu``);
-* :class:`SolveSpec` — the Krylov configuration.
+* :class:`SolveSpec` — the Krylov configuration, mixed-precision
+  refinement (``inner_dtype``) included.
 
 Solves take one source or a block of them (a leading ``nrhs`` axis);
-specs that ask for refinement or deflation raise
-``NotImplementedError``.
+specs that ask for deflation raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -99,7 +99,8 @@ class BackendSpec:
     """Which operator backend to bind, and how.
 
     ``name`` is a registry name or ``"auto"``; ``dtype`` the planar
-    compute dtype (``"f32"``/``"f64"``) of backends that take one;
+    compute dtype (``"f32"``/``"bf16"``/``"f64"``) of backends that take
+    one;
     ``gauge_compression`` the stored link representation (``"none"`` |
     ``"two_row"`` | ``"minimal"``); ``opts`` extra ``(key, value)``
     factory kwargs (e.g. ``("policy", "unfused")`` for ``cuda_fused``).
@@ -124,11 +125,7 @@ class BackendSpec:
             if norm is None:
                 raise ValueError(
                     f"unknown compute dtype {self.dtype!r}; choose from "
-                    "['f32', 'f64']")
-            if norm == "bf16":
-                raise NotImplementedError(
-                    "bf16 compute is not ported yet (the mixed-precision "
-                    "slice); use 'f32' or 'f64'")
+                    "['f32', 'bf16', 'f64']")
             object.__setattr__(self, "dtype", norm)
 
     @classmethod
@@ -192,7 +189,13 @@ class SolveSpec:
     ``guard``, ``stagnation_window`` and ``max_restarts`` tune the
     divergence guards.  ``nrhs`` pins the width of a batched source
     block (``None``: whatever the source carries).  ``inner_dtype``
-    (mixed precision) and ``deflate_rank`` above 0 are not ported yet.
+    (``"f32"`` or ``"bf16"``) turns on mixed-precision iterative
+    refinement (:func:`repro_torch.core.solver.make_refined_solve`):
+    inner solves to ``inner_tol`` at that dtype on the bound backend
+    (bind it at the inner dtype), an f64 outer loop to ``tol`` of at
+    most ``max_outer`` passes, climbing ``ESCALATION_LADDER`` when a
+    pass stalls if ``escalate``.  ``deflate_rank`` above 0 is not
+    ported yet.
     """
 
     METHODS = _solver.KRYLOV_METHODS
@@ -203,9 +206,12 @@ class SolveSpec:
     recompute_every: int = 0
     nrhs: Optional[int] = None
     inner_dtype: Optional[str] = None
+    inner_tol: float = 1e-4
+    max_outer: int = 25
     guard: bool = True
     stagnation_window: int = _solver.STAGNATION_WINDOW
     max_restarts: int = _solver.MAX_RESTARTS
+    escalate: bool = True
     deflate_rank: int = 0
 
     def __post_init__(self):
@@ -232,9 +238,14 @@ class SolveSpec:
         if self.nrhs is not None and self.nrhs < 1:
             raise ValueError(f"nrhs must be >= 1; got {self.nrhs}")
         if self.inner_dtype is not None:
-            raise NotImplementedError(
-                "inner_dtype: mixed-precision refinement is not ported "
-                "yet")
+            # raises on an unknown spelling
+            _solver.resolve_inner_dtype(self.inner_dtype)
+        if not (self.inner_tol > 0):
+            raise ValueError(
+                f"inner_tol must be > 0; got {self.inner_tol}")
+        if self.max_outer < 1:
+            raise ValueError(
+                f"max_outer must be >= 1; got {self.max_outer}")
         if self.deflate_rank:
             raise NotImplementedError(
                 "deflate_rank: deflation is not ported yet")
@@ -267,6 +278,11 @@ class SolveSpec:
             parts.append(f"re{self.recompute_every}")
         if self.nrhs is not None:
             parts.append(f"nrhs{self.nrhs}")
+        if self.inner_dtype is not None:
+            parts.append(f"inner-{self.inner_dtype}"
+                         f"@{self.inner_tol:g}x{self.max_outer}")
+            if not self.escalate:
+                parts.append("noesc")
         if not self.guard:
             parts.append("noguard")
         else:

@@ -13,7 +13,8 @@
   ``pallas_fused_stream``.
 
 Factories take complex even/odd gauge halves and convert them to the
-planar layout once, at bind time, on the gauge's device.  The dagger of
+planar layout once, at bind time, on the gauge's device, at the planar
+compute dtype (``dtype``: ``"f32"``, ``"bf16"`` or ``"f64"``).  The dagger of
 the planar backends is ``gamma5 Dhat gamma5`` on planar planes.  The
 planar kernels take a leading RHS axis, so the planar backends hand
 batched vectors straight to them; ``torch_ref`` maps its complex
@@ -29,7 +30,8 @@ from ..core import evenodd
 from ..kernels import layout, ops
 from . import BackendCapabilities, WilsonOps, register_backend
 
-_DTYPES = {"f32": torch.float32, "f64": torch.float64}
+_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16,
+           "f64": torch.float64}
 _GAUGE_COMPRESSIONS = ("none", "two_row", "minimal")
 
 
@@ -155,5 +157,5 @@ register_backend(
         kernels=("hop_block_planar", "dhat_planar_fused_stream"),
         batched_kernels=True, fallback="cuda_fused",
         description="Dhat as one cooperative CUDA launch over a ring of "
-                    "4 odd-intermediate t-rows (working set independent "
+                    "8 odd-intermediate t-rows (working set independent "
                     "of T), pinned"))

@@ -1,10 +1,10 @@
 """Carry state across from the reference package.
 
 Every function takes numpy arrays (``np.asarray`` of a ``repro`` array
-works) and returns port tensors on the given device. The layouts are
-identical in both packages, so nothing is reshuffled: complex even/odd
-fields stay ``(..., T, Z, Y, Xh, ...)`` complex, planar fields stay
-planar.
+works, bf16 included) and returns port tensors on the given device. The
+layouts are identical in both packages, so nothing is reshuffled:
+complex even/odd fields stay ``(..., T, Z, Y, Xh, ...)`` complex, planar
+fields stay planar.
 """
 from __future__ import annotations
 
@@ -19,7 +19,16 @@ __all__ = ["gauge_from_reference", "planar_gauge_from_reference",
 
 
 def _tensor(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a)).to(resolve_device(device))
+    """A copy of ``a`` on ``device``.  A bf16 array (``np.asarray`` of a
+    JAX bf16 array has the ``bfloat16`` dtype of ``ml_dtypes``, which
+    ``torch.from_numpy`` refuses) is taken bit for bit through its 16-bit
+    pattern."""
+    arr = np.array(a)
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    return t.to(resolve_device(device))
 
 
 def gauge_from_reference(U_e, U_o, device=None):

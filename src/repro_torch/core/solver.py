@@ -25,6 +25,13 @@ true residual, up to ``max_restarts`` times, after which the solve stops
 as diverged.  ``recompute_every > 0`` replaces the recursive residual
 with the true one every that many iterations exactly as the reference
 does, without a reliable-update correction of ``beta``.
+
+Vectors below f32 (the bf16 planar vectors of a mixed-precision inner
+solve) keep their dtype through every update, while their Krylov
+scalars accumulate in f32 (``COMPENSATED_REDUCTIONS``).
+:func:`make_refined_solve` is the reference's mixed-precision iterative
+refinement: inner solves at a cheap dtype, an outer loop on the f64
+true residual, and a ladder of dtypes to climb when it stalls.
 """
 from __future__ import annotations
 
@@ -33,10 +40,12 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-__all__ = ["SolveResult", "cg", "cgnr", "bicgstab", "cg_batched",
-           "cgnr_batched", "bicgstab_batched", "split_columns",
-           "KRYLOV_METHODS", "make_native_solve", "STAGNATION_WINDOW",
-           "MAX_RESTARTS"]
+__all__ = ["SolveResult", "RefinedResult", "cg", "cgnr", "bicgstab",
+           "cg_batched", "cgnr_batched", "bicgstab_batched",
+           "split_columns", "KRYLOV_METHODS", "make_native_solve",
+           "make_refined_solve", "resolve_inner_dtype",
+           "ESCALATION_LADDER", "COMPENSATED_REDUCTIONS",
+           "STAGNATION_WINDOW", "MAX_RESTARTS"]
 
 # A residual that makes no new minimum for a full window is stagnating;
 # it gets this many deterministic restarts before the solve stops.
@@ -61,8 +70,72 @@ class SolveResult(NamedTuple):
     diverged: bool = False
 
 
+class RefinedResult(NamedTuple):
+    """A mixed-precision (iterative-refinement) solve's outcome.
+
+    The first four fields match :class:`SolveResult`; ``iterations`` are
+    the inner iterations summed over the outer passes (per column for a
+    block).  ``outer_iterations`` counts outer passes, ``f64_applies``
+    applications of the f64 operator (1 per outer pass, plus the
+    right-hand side and the odd reconstruction; a pure-f64 solve pays
+    about 2 per Krylov iteration), ``inner_iterations`` the inner Krylov
+    iterations (the most of any column per pass, summed),
+    ``escalations`` each rung of :data:`ESCALATION_LADDER` the outer
+    loop climbed to, in order."""
+    x: torch.Tensor
+    iterations: object
+    residual: object
+    converged: object
+    outer_iterations: int
+    f64_applies: int
+    inner_iterations: int
+    diverged: object = False
+    escalations: tuple = ()
+
+
+# Krylov scalars (<a,b>, |r|^2, alpha/beta/rho/omega) of vectors below f32
+# (the bf16 planar vectors of a mixed-precision inner solve) accumulate in
+# f32, as the reference's do.  Naive bf16 products round to 8 mantissa
+# bits before the sum, so a cancellation-heavy dot loses significance.
+# (A PyTorch sum of bf16 values accumulates in f32 internally, so without
+# compensation only the products and the result round; at the point
+# where the reference expects the naive inner solve to stall, neither
+# package stalls: tests/test_torch_refine.py.)  The vectors, and the
+# operator's memory traffic, stay bf16: a batched scalar is cast back to
+# the vector's dtype where it meets a vector (_apply_scalar), so it never
+# promotes the iterate; the unbatched solvers' scalars are Python numbers,
+# which never promote.  Module-level so that tests can turn it off.
+COMPENSATED_REDUCTIONS = True
+
+_LOW_PRECISION = (torch.bfloat16, torch.float16)
+
+
+def _acc(x: torch.Tensor) -> torch.Tensor:
+    """A vector below f32 upcast to f32 for a reduction (unchanged
+    otherwise, or with compensation off)."""
+    if COMPENSATED_REDUCTIONS and x.dtype in _LOW_PRECISION:
+        return x.float()
+    return x
+
+
+def _apply_scalar(alpha: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """``alpha`` ready to multiply ``leaf`` without promoting it: an f32
+    scalar meeting a bf16 vector is cast down.  In PyTorch an f32
+    ``(nrhs, 1, ...)`` tensor times a bf16 tensor is f32, so without the
+    cast a batched bf16 iterate would turn f32, and every later "bf16"
+    ``Dhat`` would run the f32 kernel."""
+    if torch.promote_types(alpha.dtype, leaf.dtype) != leaf.dtype:
+        return alpha.to(leaf.dtype)
+    return alpha
+
+
 def _vdot(a: torch.Tensor, b: torch.Tensor):
-    """``<a, b>`` as a Python number (complex for complex vectors)."""
+    """``<a, b>`` as a Python number (complex for complex vectors);
+    f32-accumulated for vectors below f32 (naive without compensation:
+    bf16 products, rounded before the sum)."""
+    a, b = _acc(a), _acc(b)
+    if a.dtype in _LOW_PRECISION:
+        return (a.conj() * b).sum().item()
     return torch.vdot(a.reshape(-1), b.reshape(-1)).item()
 
 
@@ -87,7 +160,9 @@ def _result(x, iters, rel, conv, div) -> SolveResult:
 
 def _bvdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Per-column ``<a, b>`` over every axis but the leading one, as a
-    device tensor ``(nrhs,)``."""
+    device tensor ``(nrhs,)``; f32-accumulated for vectors below f32,
+    like :func:`_vdot`."""
+    a, b = _acc(a), _acc(b)
     return (a.conj() * b).reshape(a.shape[0], -1).sum(dim=1)
 
 
@@ -102,8 +177,9 @@ def _bb(alpha: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
 
 def _baxpy(alpha: torch.Tensor, x: torch.Tensor,
            y: torch.Tensor) -> torch.Tensor:
-    """``y + alpha * x`` with a per-column ``alpha``."""
-    return _bb(alpha, x) * x + y
+    """``y + alpha * x`` with a per-column ``alpha``, cast down to the
+    vector's dtype (:func:`_apply_scalar`)."""
+    return _bb(_apply_scalar(alpha, x), x) * x + y
 
 
 def _bwhere(mask: torch.Tensor, new: torch.Tensor,
@@ -599,3 +675,196 @@ def make_native_solve(bops, kappa: float, *, method: str = "cgnr",
         return res.x, v_xi_o, res
 
     return solve_native
+
+
+# --- mixed-precision iterative refinement --------------------------------
+
+_INNER_DTYPES = {
+    "f32": torch.float32, "float32": torch.float32,
+    "bf16": torch.bfloat16, "bfloat16": torch.bfloat16,
+    # The top rung of the ladder: an inner solve at full precision, which
+    # the outer loop reaches by escalating (or which A/B-tests the
+    # refinement against a pure-f64 solve).
+    "f64": torch.float64, "float64": torch.float64,
+}
+
+# Precision-escalation ladder (cheap -> exact): when a refined solve's
+# outer residual stops contracting, make_refined_solve climbs one rung
+# and rebuilds the inner operator there (``bops_factory``).
+ESCALATION_LADDER = ("bf16", "f32", "f64")
+_RUNG_OF = {torch.bfloat16: "bf16", torch.float32: "f32",
+            torch.float64: "f64"}
+# An outer pass that does not shrink the worst column's residual below
+# this share of the best so far counts as a stall (the reference's
+# default).
+STALL_FACTOR = 0.9
+
+
+def resolve_inner_dtype(inner_dtype) -> torch.dtype:
+    """The torch dtype of an inner-dtype spelling (``"f32"``, ``"bf16"``,
+    ...) or dtype; raises ``ValueError`` on an unknown spelling."""
+    if isinstance(inner_dtype, str):
+        try:
+            return _INNER_DTYPES[inner_dtype.lower()]
+        except KeyError:
+            raise ValueError(
+                f"unknown inner_dtype {inner_dtype!r}; choose from "
+                f"{sorted(set(_INNER_DTYPES))}") from None
+    if isinstance(inner_dtype, torch.dtype):
+        return inner_dtype
+    raise ValueError(f"unknown inner_dtype {inner_dtype!r}")
+
+
+def make_refined_solve(bops, U64_e, U64_o, kappa: float, *,
+                       method: str = "cgnr", tol: float = 1e-10,
+                       max_iters: int = 2000, recompute_every: int = 0,
+                       inner_tol: float = 1e-4, max_outer: int = 25,
+                       batched: bool = False, guard: bool = True,
+                       stagnation_window: int = STAGNATION_WINDOW,
+                       max_restarts: int = MAX_RESTARTS,
+                       inner_dtype="f32", escalate: bool = True,
+                       bops_factory: Optional[Callable] = None):
+    """A mixed-precision iterative-refinement solve, built once.
+
+    ``bops`` is the inner backend, bound at the cheap inner dtype;
+    ``U64_e`` / ``U64_o`` the exact complex gauge, upcast to complex128
+    for the outer operator, which is the complex even-odd arithmetic of
+    :mod:`repro_torch.core.evenodd` and shares nothing with the kernels
+    under test.  Returns ``fn(eta_e, eta_o) -> (xi_e, xi_o,
+    RefinedResult)``; ``xi`` comes back in the sources' dtype.
+
+    Outer loop: the f64 true residual ``r`` of ``Dhat x = rhs``, then a
+    correction solve ``Dhat e = r`` to ``inner_tol`` in the inner dtype
+    through ``bops``'s native domain, ``x += e``, until the f64 relative
+    residual (of every column) meets ``tol`` or ``max_outer`` passes are
+    spent.  The f64 operator is applied once per pass.
+
+    Escalation (``escalate`` with a ``bops_factory``): when a pass does
+    not contract the worst column's residual by ``STALL_FACTOR``, or the
+    inner solve's divergence guard tripped, the inner dtype climbs
+    :data:`ESCALATION_LADDER` from its starting rung and the inner
+    operator is rebuilt by ``bops_factory(rung) -> bops`` (a rung whose
+    factory raises is skipped); each rung climbed is recorded.  At the
+    ``"f64"`` rung the correction residual goes to the inner solve at
+    complex128.
+    """
+    from . import evenodd
+
+    U64_e = U64_e.to(torch.complex128)
+    U64_o = U64_o.to(torch.complex128)
+
+    def _maybe_map(fn):
+        return torch.func.vmap(fn) if batched else fn
+
+    dhat64 = _maybe_map(lambda v: evenodd.apply_dhat(U64_e, U64_o, v, kappa))
+    hop_eo64 = _maybe_map(lambda v: evenodd.hop_eo(U64_e, U64_o, v))
+    hop_oe64 = _maybe_map(lambda v: evenodd.hop_oe(U64_e, U64_o, v))
+
+    def _inner_ops(b):
+        if batched:
+            return (b.to_domain_batched, b.from_domain_batched,
+                    b.apply_dhat_native_batched,
+                    b.apply_dhat_dagger_native_batched)
+        return (b.to_domain, b.from_domain, b.apply_dhat_native,
+                b.apply_dhat_dagger_native)
+
+    def rel_of(r, b2):
+        if batched:
+            return torch.sqrt(_bnorm2(r) / b2.clamp_min(1e-300)).cpu()
+        return math.sqrt(_norm2(r) / max(b2, 1e-300))
+
+    ladder = list(ESCALATION_LADDER)
+    start_rung = ladder.index(_RUNG_OF[resolve_inner_dtype(inner_dtype)])
+
+    def refined(eta_e, eta_o):
+        eta64_e = eta_e.to(torch.complex128)
+        eta64_o = eta_o.to(torch.complex128)
+        rhs64 = eta64_e + kappa * hop_eo64(eta64_o)
+        f64_applies = 1                      # the hop above
+        b2 = _bnorm2(rhs64) if batched else _norm2(rhs64)
+        x64 = torch.zeros_like(rhs64)
+        iters_acc = (torch.zeros(rhs64.shape[0], dtype=torch.int64)
+                     if batched else 0)
+        inner_iters = 0
+        to_dom, from_dom, dhat_nat, dhat_dag_nat = _inner_ops(bops)
+        rung = start_rung
+        escalations = []
+        inner_div = None
+        best_worst = None
+        outer = 0
+        rel = None
+        for outer in range(1, max_outer + 1):
+            r64 = rhs64 - dhat64(x64)
+            f64_applies += 1
+            rel = rel_of(r64, b2)
+            worst = float(rel.max()) if batched else rel
+            if worst <= tol:
+                break
+            # Escalation trigger: the previous pass did not contract the
+            # worst column by STALL_FACTOR, or its inner solve tripped
+            # the divergence guard.
+            stalled = (best_worst is not None
+                       and not worst < best_worst * STALL_FACTOR)
+            tripped = inner_div is not None and bool(
+                torch.as_tensor(inner_div).any())
+            if (stalled or tripped) and escalate and bops_factory is not None:
+                while rung + 1 < len(ladder):
+                    rung += 1
+                    try:
+                        cur = bops_factory(ladder[rung])
+                    except Exception:    # noqa: BLE001 — rung unavailable:
+                        continue         # keep climbing
+                    to_dom, from_dom, dhat_nat, dhat_dag_nat = \
+                        _inner_ops(cur)
+                    escalations.append(ladder[rung])
+                    best_worst = None    # a fresh contraction baseline
+                    break
+            if best_worst is None or worst < best_worst:
+                best_worst = worst
+            # The correction solve in the inner dtype, native domain (the
+            # f64 rung keeps the correction residual at complex128).
+            cdt = torch.complex128 if ladder[rung] == "f64" \
+                else torch.complex64
+            res = _run_krylov(
+                method, lambda w: dhat_nat(w, kappa),
+                lambda w: dhat_dag_nat(w, kappa), to_dom(r64.to(cdt)),
+                batched=batched, tol=inner_tol, max_iters=max_iters,
+                recompute_every=recompute_every, guard=guard,
+                stagnation_window=stagnation_window,
+                max_restarts=max_restarts)
+            inner_div = res.diverged
+            x64 = x64 + from_dom(res.x).to(torch.complex128)
+            if batched:
+                iters_acc = iters_acc + res.iterations
+                inner_iters += int(res.iterations.max())
+            else:
+                iters_acc += int(res.iterations)
+                inner_iters += int(res.iterations)
+        else:
+            # Outer budget spent: report the residual of the final
+            # iterate, not the one from before the last correction.
+            r64 = rhs64 - dhat64(x64)
+            f64_applies += 1
+            rel = rel_of(r64, b2)
+        xi_o64 = eta64_o + kappa * hop_oe64(x64)
+        f64_applies += 1
+        if batched:
+            diverged = ~torch.isfinite(rel)
+            if inner_div is not None:
+                # An inner guard trip counts as divergence only where the
+                # outer loop never brought the column to tolerance.
+                diverged = diverged | (inner_div.cpu() & ~(rel <= tol))
+            converged = (rel <= tol) & ~diverged
+        else:
+            diverged = not math.isfinite(rel) or (
+                bool(inner_div) and not rel <= tol)
+            converged = rel <= tol and not diverged
+        xi_e = x64.to(eta_e.dtype)
+        xi_o = xi_o64.to(eta_o.dtype)
+        return xi_e, xi_o, RefinedResult(
+            x=xi_e, iterations=iters_acc, residual=rel,
+            converged=converged, outer_iterations=outer,
+            f64_applies=f64_applies, inner_iterations=inner_iters,
+            diverged=diverged, escalations=tuple(escalations))
+
+    return refined

@@ -40,7 +40,8 @@ __global__ void __launch_bounds__(wilson::tile::kMaxThreads,
                                   wilson::tile::MinBlocks<R>::value)
     dhat_fused_kernel(const R* __restrict__ u_e, const R* __restrict__ u_o,
                       const R* psi, R* tmp, R* out, Geom g, Shape sh,
-                      int nrhs, int tz_par, R kappa2) {
+                      int nrhs, int tz_par,
+                      wilson::compute_t<R> kappa2) {
   extern __shared__ __align__(16) char smem[];
   cg::grid_group grid = cg::this_grid();
   const int64_t rows = wilson::row_elems(g);
@@ -63,7 +64,7 @@ __global__ void __launch_bounds__(wilson::tile::kMaxThreads,
         wilson::tile::hop_tile<R, GC, D>(
             smem, g, sh, u_o, u_e, p + t * rows, p + tf * rows,
             p + tb * rows, psi_rhs, tmp + base + t * rows, nullptr, psi_rhs,
-            t, tile * sh.S, nr, 1, tz_par, R(0));
+            t, tile * sh.S, nr, 1, tz_par, 0);
       } else {
         // out = psi_e - kappa^2 H_eo tmp.
         const R* q = tmp + base;
@@ -99,7 +100,8 @@ struct DhatLaunch {
     const R* p = static_cast<const R*>(psi);
     R* t = static_cast<R*>(tmp);
     R* o = static_cast<R*>(out);
-    R k2 = static_cast<R>(kappa2);
+    using C = wilson::compute_t<R>;
+    C k2 = static_cast<C>(kappa2);
     Geom geom = g;
     Shape shape = sh;
     int n = nrhs, par = tz_par;
@@ -139,7 +141,8 @@ extern "C" int wilson_dhat_fused_occupancy(int gc, int itemsize, int dgroups,
 }
 
 // Plain C entry point, loaded with ctypes.  tmp is caller-allocated scratch
-// of the same shape as psi.  itemsize is 4 or 8; gc is 18, 12 or 8; the
+// of the same shape as psi.  itemsize is 4 (float), 8 (double) or 2 (bf16:
+// bf16 tensors, scratch included, computed in f32); gc is 18, 12 or 8; the
 // geometry (dgroups = D, G, S, groups, tiles, threads, grid blocks, smem
 // bytes) comes from kernels/geometry.py, the grid no larger
 // than what the occupancy entry reports times the SM count.  Returns the

@@ -135,7 +135,7 @@ __global__ void __launch_bounds__(wilson::tile::kMaxThreads,
     dhat_stream_kernel(const R* __restrict__ u_e, const R* __restrict__ u_o,
                        const R* __restrict__ psi, R* ring, R* out,
                        Flag* flags, Geom g, Shape sh, int nrhs, int window,
-                       int tz_par, R kappa2) {
+                       int tz_par, wilson::compute_t<R> kappa2) {
   extern __shared__ __align__(16) char smem[];
   const int64_t per_slot = static_cast<int64_t>(sh.groups) * g.Z;
   Flag* pcount = flags + kFlagHeader;
@@ -187,7 +187,7 @@ __global__ void __launch_bounds__(wilson::tile::kMaxThreads,
       wilson::tile::hop_tile<R, GC, D>(
           smem, g, sh, u_o, u_e, p + t * rows, p + tf * rows, p + tb * rows,
           psi_rhs, ring + r0 * ring_rhs + (s % window) * rows, nullptr,
-          ring_rhs, t, tile * sh.S, nr, 1, tz_par, R(0));
+          ring_rhs, t, tile * sh.S, nr, 1, tz_par, 0);
       publish(pcount + (s % window) * per_slot + grp * g.Z, pl);
     } else {
       // out = psi_e - kappa^2 H_eo ring at output row (s-3) % T, whose
@@ -238,7 +238,8 @@ struct DhatStreamLaunch {
     R* rg = static_cast<R*>(ring);
     R* o = static_cast<R*>(out);
     Flag* f = static_cast<Flag*>(flags);
-    R k2 = static_cast<R>(kappa2);
+    using C = wilson::compute_t<R>;
+    C k2 = static_cast<C>(kappa2);
     Geom geom = g;
     Shape shape = sh;
     int n = nrhs, w = window, par = tz_par;
@@ -283,8 +284,8 @@ extern "C" int wilson_dhat_stream_occupancy(int gc, int itemsize,
 // scratch of nrhs * window * Z * 24 * Y * Xh elements, window >= 4; flags
 // is a zero-initialised buffer of 1 + 2 * window * groups * Z 64-bit words,
 // which the kernel leaves zeroed, so a caller reuses it for every launch on
-// one stream.  itemsize is 4 or 8; gc is 18, 12 or 8; the geometry as for
-// wilson_dhat_fused_launch.  Returns the cudaError_t of the launch (0 on
+// one stream.  itemsize is 4, 8 or 2 (bf16, the ring too); gc is 18, 12 or
+// 8; the geometry as for wilson_dhat_fused_launch.  Returns the cudaError_t of the launch (0 on
 // success); does not synchronise.
 extern "C" int wilson_dhat_stream_launch(
     const void* u_e, const void* u_o, const void* psi, void* ring, void* out,

@@ -44,7 +44,8 @@ __global__ void __launch_bounds__(wilson::tile::kMaxThreads,
     hop_kernel(const R* __restrict__ u_out, const R* __restrict__ u_in,
                const R* __restrict__ src, const R* __restrict__ psi0,
                R* __restrict__ out, Geom g, Shape sh, int nrhs,
-               int out_parity, int tz_par, R coeff) {
+               int out_parity, int tz_par,
+               wilson::compute_t<R> coeff) {
   extern __shared__ __align__(16) char smem[];
   const int per_row = sh.tiles * sh.groups;
   const int w = blockIdx.x;
@@ -108,7 +109,7 @@ struct HopLaunch {
         static_cast<const R*>(u_out), static_cast<const R*>(u_in),
         static_cast<const R*>(src), static_cast<const R*>(psi0),
         static_cast<R*>(out), g, sh, nrhs, out_parity, tz_par,
-        static_cast<R>(coeff));
+        static_cast<wilson::compute_t<R>>(coeff));
     return cudaGetLastError();
   }
 
@@ -123,9 +124,10 @@ struct HopLaunch {
 // Plain C entry point, loaded with ctypes.  psi0 may be null (no axpy).
 // T, Z, Y, Xh are the output's extents; with halo = 1, src is
 // [nrhs][T+2][Z+2][24][Y][Xh] and u_in [4][T+2][Z+2][gc][Y][Xh], while
-// u_out, psi0 and out are not extended.  itemsize is 4 (float) or 8
-// (double); gc is 18, 12 or 8; the geometry (dgroups = D, G, S, groups,
-// tiles, threads, smem bytes) comes from kernels/geometry.py, hop_geometry;
+// u_out, psi0 and out are not extended.  itemsize is 4 (float), 8
+// (double) or 2 (bf16, computed in f32); gc is 18, 12 or 8; the geometry
+// (dgroups = D, G, S, groups, tiles, threads, smem bytes) comes from
+// kernels/geometry.py, hop_geometry;
 // the grid is T * tiles * groups blocks.  Returns the cudaError_t of the
 // launch (0 on success).  Launches on `stream` and does not synchronise.
 extern "C" int wilson_hop_launch(const void* u_out, const void* u_in,

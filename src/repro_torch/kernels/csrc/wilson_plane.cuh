@@ -1,7 +1,7 @@
 // Device code that the three kernels share through wilson_site_tile.cuh:
-// half-spinor projection, the SU(3) multiply, reconstruction, link
-// expansion, the lattice geometry and the device guard of the C entry
-// points.
+// the storage and compute types, half-spinor projection, the SU(3)
+// multiply, reconstruction, link expansion, the lattice geometry and the
+// device guard of the C entry points.
 //
 // Layouts (planar, identical to the reference package):
 //   spinor  [nrhs][T][Z][24][Y][Xh], component c = (spin*3 + color)*2 + reim
@@ -10,13 +10,49 @@
 //
 // The arithmetic (operation order included) is the one of the plain version
 // in kernels/ref.py, itself the reference's _proj/_su3_mul/_recon_acc.
+//
+// Storage and compute types: a field of type R (float, double or
+// __nv_bfloat16) is loaded into registers of type compute_t<R> (float for
+// bf16, R otherwise), computed there, and rounded back to R once where it
+// is stored (round to nearest even).  The H100 has no bf16 FMA path worth
+// using for 3x3 complex products, and one rounding per stored tensor is
+// what the plain version does.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace wilson {
+
+template <typename R>
+struct Compute {
+  using type = R;
+};
+template <>
+struct Compute<__nv_bfloat16> {
+  using type = float;
+};
+template <typename R>
+using compute_t = typename Compute<R>::type;
+
+__device__ __forceinline__ float to_compute(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_compute(float v) { return v; }
+__device__ __forceinline__ double to_compute(double v) { return v; }
+
+// A compute-type value rounded to the storage type R.
+template <typename R>
+__device__ __forceinline__ R to_store(compute_t<R> v) {
+  if constexpr (std::is_same_v<R, __nv_bfloat16>) {
+    return __float2bfloat16_rn(v);
+  } else {
+    return v;
+  }
+}
 
 constexpr int kSpinorComps = 24;
 
@@ -64,30 +100,33 @@ __device__ __forceinline__ void cmul_rn(R ar, R ai, R br, R bi, R* re, R* im) {
 }
 
 // Load GC planes of one link (stride `plane` between planes) and expand them
-// to the 18 components of the full SU(3) matrix (the operations and their
-// order are those of layout.expand_links_planes).
+// to the 18 components of the full SU(3) matrix in the compute type (the
+// operations and their order are those of layout.expand_links_planes).
 template <typename R, int GC>
-__device__ __forceinline__ void load_link(const R* __restrict__ g,
-                                          int64_t plane, R u[18]) {
+__device__ __forceinline__ void load_link(const R* __restrict__ gs,
+                                          int64_t plane,
+                                          compute_t<R> u[18]) {
+  using C = compute_t<R>;
+  auto g = [&](int64_t i) { return to_compute(gs[i]); };
   if constexpr (GC == 18) {
 #pragma unroll
-    for (int i = 0; i < 18; ++i) u[i] = g[i * plane];
+    for (int i = 0; i < 18; ++i) u[i] = g(i * plane);
   } else {
-    R a1r, a1i, a2r, a2i, a3r, a3i, b1r, b1i, b2r, b2i, b3r, b3i, c1r, c1i;
-    R t1r, t1i, t2r, t2i;
+    C a1r, a1i, a2r, a2i, a3r, a3i, b1r, b1i, b2r, b2i, b3r, b3i, c1r, c1i;
+    C t1r, t1i, t2r, t2i;
     if constexpr (GC == 12) {
-      a1r = g[0];
-      a1i = g[plane];
-      a2r = g[2 * plane];
-      a2i = g[3 * plane];
-      a3r = g[4 * plane];
-      a3i = g[5 * plane];
-      b1r = g[6 * plane];
-      b1i = g[7 * plane];
-      b2r = g[8 * plane];
-      b2i = g[9 * plane];
-      b3r = g[10 * plane];
-      b3i = g[11 * plane];
+      a1r = g(0);
+      a1i = g(plane);
+      a2r = g(2 * plane);
+      a2i = g(3 * plane);
+      a3r = g(4 * plane);
+      a3i = g(5 * plane);
+      b1r = g(6 * plane);
+      b1i = g(7 * plane);
+      b2r = g(8 * plane);
+      b2i = g(9 * plane);
+      b3r = g(10 * plane);
+      b3i = g(11 * plane);
       // c1 = conj(a2 b3 - a3 b2)
       cmul_rn(a2r, a2i, b3r, b3i, &t1r, &t1i);
       cmul_rn(a3r, a3i, b2r, b2i, &t2r, &t2i);
@@ -95,26 +134,26 @@ __device__ __forceinline__ void load_link(const R* __restrict__ g,
       c1i = sub_rn(t2i, t1i);
     } else {
       static_assert(GC == 8, "gauge planes must be 18, 12 or 8");
-      a2r = g[0];
-      a2i = g[plane];
-      a3r = g[2 * plane];
-      a3i = g[3 * plane];
-      b1r = g[4 * plane];
-      b1i = g[5 * plane];
-      const R tha = g[6 * plane], thc = g[7 * plane];
-      const R d = add_rn(add_rn(add_rn(mul_rn(a2r, a2r), mul_rn(a2i, a2i)),
+      a2r = g(0);
+      a2i = g(plane);
+      a3r = g(2 * plane);
+      a3i = g(3 * plane);
+      b1r = g(4 * plane);
+      b1i = g(5 * plane);
+      const C tha = g(6 * plane), thc = g(7 * plane);
+      const C d = add_rn(add_rn(add_rn(mul_rn(a2r, a2r), mul_rn(a2i, a2i)),
                                 mul_rn(a3r, a3r)),
                          mul_rn(a3i, a3i));
-      const R a1m = sqrt(fmax(sub_rn(R(1), d), R(0)));
+      const C a1m = sqrt(fmax(sub_rn(C(1), d), C(0)));
       a1r = mul_rn(a1m, cos(tha));
       a1i = mul_rn(a1m, sin(tha));
-      const R c1m = sqrt(fmax(
-          sub_rn(d, add_rn(mul_rn(b1r, b1r), mul_rn(b1i, b1i))), R(0)));
+      const C c1m = sqrt(fmax(
+          sub_rn(d, add_rn(mul_rn(b1r, b1r), mul_rn(b1i, b1i))), C(0)));
       c1r = mul_rn(c1m, cos(thc));
       c1i = mul_rn(c1m, sin(thc));
-      const R dinv = div_rn(R(1), fmax(d, R(1e-30)));
+      const C dinv = div_rn(C(1), fmax(d, C(1e-30)));
       // s = -conj(a1) b1
-      R sr, si;
+      C sr, si;
       cmul_rn(a1r, -a1i, b1r, b1i, &sr, &si);
       sr = -sr;
       si = -si;
@@ -132,10 +171,10 @@ __device__ __forceinline__ void load_link(const R* __restrict__ g,
     // c2 = conj(a3 b1 - a1 b3), c3 = conj(a1 b2 - a2 b1)
     cmul_rn(a3r, a3i, b1r, b1i, &t1r, &t1i);
     cmul_rn(a1r, a1i, b3r, b3i, &t2r, &t2i);
-    const R c2r = sub_rn(t1r, t2r), c2i = sub_rn(t2i, t1i);
+    const C c2r = sub_rn(t1r, t2r), c2i = sub_rn(t2i, t1i);
     cmul_rn(a1r, a1i, b2r, b2i, &t1r, &t1i);
     cmul_rn(a2r, a2i, b1r, b1i, &t2r, &t2i);
-    const R c3r = sub_rn(t1r, t2r), c3i = sub_rn(t2i, t1i);
+    const C c3r = sub_rn(t1r, t2r), c3i = sub_rn(t2i, t1i);
     u[0] = a1r; u[1] = a1i; u[2] = a2r; u[3] = a2i; u[4] = a3r; u[5] = a3i;
     u[6] = b1r; u[7] = b1i; u[8] = b2r; u[9] = b2i; u[10] = b3r; u[11] = b3i;
     u[12] = c1r; u[13] = c1i; u[14] = c2r; u[15] = c2i; u[16] = c3r;

@@ -39,6 +39,13 @@
 // order d = 0..D-1.  The order depends on D alone, and the three kernels
 // take the same D for the same source count and type, so B2 and B3 agree
 // bit for bit, and so does the two-launch Dhat of B1.
+//
+// Types (wilson_plane.cuh): fields, links in shared memory and every
+// stored result have the storage type R; a thread's links, spinors,
+// accumulator and the D partial sums have the compute type compute_t<R>
+// (float for bf16).  Compressed links are expanded in the compute type and
+// rounded to R in shared memory, as the plain version expands bf16 planes;
+// a result is rounded to R once, after the epilogue psi0 + coeff * acc.
 #pragma once
 
 #include <cstdint>
@@ -51,10 +58,11 @@ namespace tile {
 // Most threads a block of hop_tile may have (D * G * S).
 constexpr int kMaxThreads = 192;
 // Blocks per SM the kernels are compiled for, which caps the registers of
-// a thread at 65536 / (kMaxThreads * blocks): f32 at 168, f64 at 255.
+// a thread at 65536 / (kMaxThreads * blocks): f32 and bf16 (computed in
+// f32) at 168, f64 at 255.
 template <typename R>
 struct MinBlocks {
-  static constexpr int value = sizeof(R) == 4 ? 2 : 1;
+  static constexpr int value = sizeof(compute_t<R>) == 4 ? 2 : 1;
 };
 
 // The tile shape of one launch (kernels/geometry.py):
@@ -69,20 +77,31 @@ struct Shape {
 // Reals of shared memory per tile site: its 8 links, expanded.
 constexpr int kLinkPlanes = 8 * 18;
 
+// Bytes of one compute-type real for a storage itemsize (2 is bf16).
+inline int compute_itemsize(int itemsize) {
+  return itemsize == 2 ? 4 : itemsize;
+}
+
 // Dynamic shared memory of one block.  The D partial sums (D * 24 * G * S
-// reals) reuse the link region once the links are read.
+// compute-type reals) reuse the link region once the links are read.
 inline int64_t smem_bytes(int S, int itemsize) {
   return static_cast<int64_t>(S) * kLinkPlanes * itemsize;
 }
 
-// Asynchronous copy of one real from global to shared memory (sm_80+).
+// Copy of one real from global to shared memory: asynchronous (sm_80+)
+// for 4- and 8-byte reals; cp.async moves 4, 8 or 16 bytes, so a bf16 real
+// is a plain load and store (the caller's barrier publishes it).
 template <typename R>
-__device__ __forceinline__ void cp_async(R* dst_smem, const R* src) {
-  const unsigned d =
-      static_cast<unsigned>(__cvta_generic_to_shared(dst_smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
-               "l"(src), "n"(sizeof(R))
-               : "memory");
+__device__ __forceinline__ void copy_real(R* dst_smem, const R* src) {
+  if constexpr (sizeof(R) >= 4) {
+    const unsigned d =
+        static_cast<unsigned>(__cvta_generic_to_shared(dst_smem));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                 "l"(src), "n"(sizeof(R))
+                 : "memory");
+  } else {
+    *dst_smem = *src;
+  }
 }
 
 // Asynchronous copy of 16 bytes, cached in L2 only; both addresses 16-byte
@@ -160,9 +179,10 @@ __device__ __forceinline__ int64_t slot_offset(const Geom& g,
 // Link slot `slot` of tile site s, from its 18 expanded planes (S apart).
 template <typename R>
 __device__ __forceinline__ void tile_link(const R* lk, int S, int s,
-                                          int slot, R u[18]) {
+                                          int slot, compute_t<R> u[18]) {
 #pragma unroll
-  for (int k = 0; k < 18; ++k) u[k] = lk[(slot * 18 + k) * S + s];
+  for (int k = 0; k < 18; ++k)
+    u[k] = to_compute(lk[(slot * 18 + k) * S + s]);
 }
 
 // Forward and backward term of direction MU for one source: the links come
@@ -171,20 +191,22 @@ __device__ __forceinline__ void tile_link(const R* lk, int S, int s,
 template <int MU, typename R>
 __device__ __forceinline__ void tile_dir(const R* lk, int S, int s,
                                          const R* p_fwd, const R* p_bwd,
-                                         int64_t plane, R acc[24]) {
-  R u[18];
-  R p[24];
-  R h[12];
-  R uh[12];
+                                         int64_t plane,
+                                         compute_t<R> acc[24]) {
+  using C = compute_t<R>;
+  C u[18];
+  C p[24];
+  C h[12];
+  C uh[12];
   tile_link<R>(lk, S, s, 2 * MU, u);
 #pragma unroll
-  for (int c = 0; c < 24; ++c) p[c] = p_fwd[c * plane];
+  for (int c = 0; c < 24; ++c) p[c] = to_compute(p_fwd[c * plane]);
   project<MU, -1>(p, h);
   su3_mul<false>(u, h, uh);
   recon_acc<MU, -1>(acc, uh);
   tile_link<R>(lk, S, s, 2 * MU + 1, u);
 #pragma unroll
-  for (int c = 0; c < 24; ++c) p[c] = p_bwd[c * plane];
+  for (int c = 0; c < 24; ++c) p[c] = to_compute(p_bwd[c * plane]);
   project<MU, +1>(p, h);
   su3_mul<true>(u, h, uh);
   recon_acc<MU, +1>(acc, uh);
@@ -215,7 +237,8 @@ __device__ __forceinline__ int wide_slot(int k) {
 // extended [4][T+2][Z+2][GC][Y][Xh] gauge; g is the output's geometry
 // either way.  dst (and psi0, if given) point at the same element of the
 // output's row t, sources dst_stride apart; the store is dst = acc, or
-// dst = psi0 + coeff * acc.  nr is the number of live sources of the group
+// dst = psi0 + coeff * acc, in the compute type and rounded to R once.  nr
+// is the number of live sources of the group
 // (the last group may be short).  out_parity 1 is H_oe (u_out = odd links,
 // u_in = even links), 0 is H_eo.  Ends with a block barrier, so the caller
 // may publish the tile's stores and reuse shared memory at once.
@@ -225,7 +248,8 @@ __device__ __forceinline__ void hop_tile(
     const R* __restrict__ u_in, const R* src_c, const R* src_tf,
     const R* src_tb, int64_t src_stride, R* dst, const R* psi0,
     int64_t dst_stride, int t, int site0, int nr, int out_parity,
-    int tz_par, R coeff) {
+    int tz_par, compute_t<R> coeff) {
+  using C = compute_t<R>;
   const int S = sh.S;
   const int GS = sh.G * S;
   const int tid = threadIdx.x;
@@ -261,7 +285,8 @@ __device__ __forceinline__ void hop_tile(
   //    backward at its -mu neighbour) into shared memory, site fastest.
   //    Where runs of V sites are contiguous, 16-byte aligned and the tile a
   //    multiple of V, the threads of a run copy its slots V reals per copy
-  //    instruction (see wide_slot); the rest go one real at a time.
+  //    instruction (see wide_slot; V is 4 sites in f32, 2 in f64, 8 in
+  //    bf16); the rest go one real at a time.
   //    Ragged shapes (a plane or a tile that is no multiple of V) take the
   //    second path for every slot.
   constexpr int V = 16 / sizeof(R);
@@ -294,13 +319,14 @@ __device__ __forceinline__ void hop_tile(
                       slot_offset<GC, HALO>(g, gin, slot, t, z, y, xh, n);
       R* to = raw + slot * GC * S + s;
 #pragma unroll
-      for (int c = 0; c < GC; ++c) cp_async(to + c * S, from + c * plane);
+      for (int c = 0; c < GC; ++c) copy_real(to + c * S, from + c * plane);
     }
   }
   cp_async_wait_all();
   __syncthreads();
 
-  // 2. Expand compressed links once per tile, in place: slot k's 18
+  // 2. Expand compressed links once per tile, in place (in the compute
+  //    type, rounded to R in shared memory): slot k's 18
   //    planes, [18k, 18k + 18), end at or before the raw planes of slot
   //    k + 1, which start at 8 * (18 - GC) + GC * (k + 1) >= 18k + 18 for
   //    k <= 7.  So a round of slots may overwrite only raw slots of its own
@@ -311,12 +337,13 @@ __device__ __forceinline__ void hop_tile(
     for (int first = 0; first < 8; first += lanes) {
       const int slot = first + lane;
       const bool mine = in_row && slot < 8;
-      R u[18];
+      C u[18];
       if (mine) load_link<R, GC>(raw + slot * GC * S + s, S, u);
       if (lanes > 1) __syncthreads();
       if (mine) {
 #pragma unroll
-        for (int k = 0; k < 18; ++k) lk[(slot * 18 + k) * S + s] = u[k];
+        for (int k = 0; k < 18; ++k)
+          lk[(slot * 18 + k) * S + s] = to_store<R>(u[k]);
       }
     }
     __syncthreads();
@@ -326,9 +353,9 @@ __device__ __forceinline__ void hop_tile(
   //    source).
   const int d = lane / sh.G, r = lane % sh.G;
   const bool live = in_row && r < nr;
-  R acc[24];
+  C acc[24];
 #pragma unroll
-  for (int c = 0; c < 24; ++c) acc[c] = R(0);
+  for (int c = 0; c < 24; ++c) acc[c] = C(0);
   const int64_t at = row_offset(g, z, y, xh);
   if (live) {
     const R* pc = src_c + r * src_stride;
@@ -355,11 +382,13 @@ __device__ __forceinline__ void hop_tile(
       const R* q = psi0 != nullptr ? psi0 + r * dst_stride + at : nullptr;
 #pragma unroll
       for (int c = 0; c < 24; ++c)
-        o[c * plane] = q != nullptr ? q[c * plane] + coeff * acc[c] : acc[c];
+        o[c * plane] = to_store<R>(
+            q != nullptr ? to_compute(q[c * plane]) + coeff * acc[c]
+                         : acc[c]);
     }
   } else {
     __syncthreads();  // every thread has read the links: reuse lk
-    R* red = lk;
+    C* red = reinterpret_cast<C*>(smem);
     const int me = r * S + s;
 #pragma unroll
     for (int c = 0; c < 24; ++c) red[(d * 24 + c) * GS + me] = acc[c];
@@ -371,10 +400,11 @@ __device__ __forceinline__ void hop_tile(
 #pragma unroll
       for (int k = 0; k < kPer; ++k) {
         const int c = d * kPer + k;
-        R v = red[c * GS + me];
+        C v = red[c * GS + me];
 #pragma unroll
         for (int dd = 1; dd < D; ++dd) v += red[(dd * 24 + c) * GS + me];
-        o[c * plane] = q != nullptr ? q[c * plane] + coeff * v : v;
+        o[c * plane] = to_store<R>(
+            q != nullptr ? to_compute(q[c * plane]) + coeff * v : v);
       }
     }
   }
@@ -401,23 +431,27 @@ cudaError_t dispatch_gc(int gc, int dgroups, F& f) {
   }
 }
 
+// The storage type by itemsize: 4 float, 8 double, 2 bf16.
 template <typename F>
 cudaError_t dispatch(int itemsize, int gc, int dgroups, F& f) {
   if (itemsize == 4) return dispatch_gc<F, float>(gc, dgroups, f);
   if (itemsize == 8) return dispatch_gc<F, double>(gc, dgroups, f);
+  if (itemsize == 2) return dispatch_gc<F, __nv_bfloat16>(gc, dgroups, f);
   return cudaErrorInvalidValue;
 }
 
 // Checks a launch's geometry against what the kernel needs: the thread
-// count is D * G * S and at most kMaxThreads, the D partial sums fit the
-// link region, and smem covers smem_bytes().
+// count is D * G * S and at most kMaxThreads, the D partial sums (bytes of
+// the compute type) fit the link region (bytes of the storage type), and
+// smem covers smem_bytes().
 inline cudaError_t check_shape(const Shape& sh, int dgroups, int threads,
                                int itemsize, int64_t smem, int nrhs) {
   if (sh.G < 1 || sh.S < 1 || sh.groups < 1 || sh.tiles < 1)
     return cudaErrorInvalidValue;
   if (threads != dgroups * sh.G * sh.S || threads > kMaxThreads)
     return cudaErrorInvalidValue;
-  if (dgroups > 1 && dgroups * 24 * sh.G > kLinkPlanes)
+  if (dgroups > 1 && dgroups * 24 * sh.G * compute_itemsize(itemsize) >
+                         kLinkPlanes * itemsize)
     return cudaErrorInvalidValue;
   if (static_cast<int64_t>(sh.G) * sh.groups < nrhs)
     return cudaErrorInvalidValue;

@@ -7,6 +7,10 @@ directions.  This module chooses those numbers, the shared-memory bytes
 a block needs and, for B3, the size of its flags buffer, so that the
 CPU tests can check them; the wrappers pass them to the C entry points,
 which refuse a geometry that does not fit the kernel.
+
+``itemsize`` is the storage type's: 4 (f32), 8 (f64) or 2 (bf16, whose
+kernels compute in f32 registers, so that its D partial sums take 4
+bytes a real).
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ from typing import List, Tuple
 
 __all__ = ["TileGeometry", "tile_geometry", "hop_geometry", "smem_bytes",
            "stream_flag_words", "stream_task", "stream_waits",
+           "compute_itemsize", "partials_fit",
            "tile_planes", "tiles_on_plane", "check_geometry",
            "MAX_THREADS", "MAX_GROUP", "TARGET_THREADS", "LINK_PLANES",
            "SMEM_LIMIT_BYTES", "SMEM_BUDGET_BYTES", "HOP_MIN_BLOCKS"]
@@ -63,11 +68,33 @@ class TileGeometry:
         return self.tiles * self.groups
 
 
+def _check_itemsize(itemsize: int) -> None:
+    if itemsize not in (2, 4, 8):
+        raise ValueError(f"itemsize must be 2 (bf16), 4 (f32) or 8 (f64); "
+                         f"got {itemsize}")
+
+
+def compute_itemsize(itemsize: int) -> int:
+    """Bytes of a register real for a storage itemsize: bf16 computes in
+    f32 (``wilson::tile::compute_itemsize``)."""
+    _check_itemsize(itemsize)
+    return 4 if itemsize == 2 else itemsize
+
+
 def smem_bytes(S: int, itemsize: int) -> int:
     """Dynamic shared memory of one block (``wilson::tile::smem_bytes``);
     the ``D`` partial sums reuse the link region once the links are
-    read, so ``D * 24 * G <= LINK_PLANES`` when ``D > 1``."""
+    read (:func:`partials_fit`)."""
+    _check_itemsize(itemsize)
     return S * LINK_PLANES * itemsize
+
+
+def partials_fit(D: int, G: int, itemsize: int) -> bool:
+    """Whether the ``D * 24 * G * S`` partial sums of a block, in the
+    compute type, fit its link region of ``S * LINK_PLANES`` reals of
+    the storage type (always, for ``D = 1``, which needs none)."""
+    return D == 1 or (D * 24 * G * compute_itemsize(itemsize)
+                      <= LINK_PLANES * itemsize)
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,9 +109,10 @@ def tile_geometry(Z: int, Y: int, Xh: int, nrhs: int,
     site (``D = 1``) while the tile's links fit ``SMEM_BUDGET_BYTES``;
     where they do not (f64 with one source), the terms of a site split
     over ``D = 2`` threads, which keeps the block's threads on half the
-    sites.  Every link form takes the same shared memory (compressed
-    links are expanded in place), so the geometry does not depend on
-    it.  B2 and B3 take the same geometry, hence the same summation
+    sites (never in bf16, whose f32 partial sums would not fit the
+    region of its 2-byte links, and whose tiles fit the budget anyway).
+    Every link form takes the same shared memory (compressed links are
+    expanded in place), so the geometry does not depend on it.  B2 and B3 take the same geometry, hence the same summation
     order.
     """
     if min(Z, Y, Xh, nrhs) < 1:
@@ -94,8 +122,8 @@ def tile_geometry(Z: int, Y: int, Xh: int, nrhs: int,
     G = -(-nrhs // groups)
     D = 1
     S = 8 * -(-TARGET_THREADS // (8 * G))
-    if smem_bytes(S, itemsize) > SMEM_BUDGET_BYTES and 2 * 24 * G <= \
-            LINK_PLANES:
+    if smem_bytes(S, itemsize) > SMEM_BUDGET_BYTES and \
+            partials_fit(2, G, itemsize):
         # G * S stays a multiple of 32: no warp straddles two direction
         # groups.
         D = 2
@@ -153,9 +181,9 @@ def check_geometry(geom: TileGeometry, itemsize: int) -> None:
     if not need <= geom.smem <= SMEM_LIMIT_BYTES:
         raise ValueError(f"tile geometry {geom}: shared memory must lie "
                          f"between {need} and {SMEM_LIMIT_BYTES} B")
-    if geom.D > 1 and geom.D * 24 * geom.G > LINK_PLANES:
+    if not partials_fit(geom.D, geom.G, itemsize):
         raise ValueError(f"tile geometry {geom}: the D partial sums do "
-                         "not fit the link region")
+                         f"not fit the link region at itemsize {itemsize}")
 
 
 def stream_task(w: int, T: int, per_step: int) -> Tuple[int, bool, int]:

@@ -179,8 +179,11 @@ def gauge_compress_planar(p: torch.Tensor, mode: str) -> torch.Tensor:
         return p[..., :GAUGE_COMPS_TWO_ROW, :, :].contiguous()
     if mode == "minimal":
         u = torch.movedim(p, -3, 0)
-        tha = torch.atan2(u[1], u[0])
-        thc = torch.atan2(u[13], u[12])
+        # The phases of bf16 planes are computed in f32 and rounded back,
+        # as the reference does.
+        f = torch.float64 if p.dtype == torch.float64 else torch.float32
+        tha = torch.atan2(u[1].to(f), u[0].to(f)).to(p.dtype)
+        thc = torch.atan2(u[13].to(f), u[12].to(f)).to(p.dtype)
         planes = [u[2], u[3], u[4], u[5], u[6], u[7], tha, thc]
         return torch.movedim(torch.stack(planes), 0, -3).contiguous()
     raise ValueError(f"unknown gauge compression mode {mode!r}")

@@ -10,6 +10,13 @@ over its ring of t-rows with the same per-row arithmetic.  The
 kernel wrappers in :mod:`repro_torch.kernels.wilson_stencil` run these on
 CPU tensors; ``chip_smoke.py`` holds the kernels against them on the
 card.
+
+bf16 fields are computed as the kernels compute them: upcast to f32,
+compressed links expanded in f32 and rounded to bf16 once (the kernels'
+shared-memory copy), the arithmetic of the f32 version, and each stored
+tensor rounded to bf16 once (round to nearest even): the odd
+intermediate of ``Dhat`` (B2's scratch, B3's ring, the first of the two
+B1 launches), then the result, after the axpy.
 """
 from __future__ import annotations
 
@@ -17,10 +24,20 @@ from typing import Optional, Tuple
 
 import torch
 
-from .layout import SPINOR_COMPS, expand_links_planes
+from .layout import (GAUGE_COMPS, SPINOR_COMPS, expand_links_planes,
+                     gauge_expand_planar)
 
 __all__ = ["hop_block_planar_ref", "dhat_planar_ref",
            "dhat_planar_stream_ref"]
+
+
+def _links_f32(u: torch.Tensor) -> torch.Tensor:
+    """bf16 planar links ``(4, T, Z, gc, Y, Xh)`` as the kernels read
+    them from shared memory: compressed planes expanded in f32 and
+    rounded to bf16 once; returned in f32 with 18 planes."""
+    if u.shape[3] != GAUGE_COMPS:
+        u = gauge_expand_planar(u.float()).to(torch.bfloat16)
+    return u.float()
 
 
 def _c(p, s: int, a: int):
@@ -182,8 +199,15 @@ def hop_block_planar_ref(u_out_p: torch.Tensor, u_in_p: torch.Tensor,
     ``axpy=(coeff, psi0_p)`` returns ``psi0 + coeff * hop``.  With
     ``halo``, ``src_p`` and ``u_in_p`` are extended to ``(T+2, Z+2)``,
     the centre at +1, and z/t neighbours are read there without wrap
-    (the reference's ``hop_block_ext_planar_native``).
+    (the reference's ``hop_block_ext_planar_native``).  bf16 is computed
+    in f32 and rounded once, after the axpy (module docstring).
     """
+    if src_p.dtype == torch.bfloat16:
+        out = hop_block_planar_ref(
+            _links_f32(u_out_p), _links_f32(u_in_p), src_p.float(),
+            out_parity, tz_offset=tz_offset, halo=halo,
+            axpy=None if axpy is None else (axpy[0], axpy[1].float()))
+        return out.to(torch.bfloat16)
     # Component axis first; an RHS axis lands right behind it, so the
     # trailing dims are (T, Z, Y, Xh) either way.
     c = torch.movedim(src_p, -3, 0)          # (24, [N,] T', Z', Y, Xh)
@@ -212,7 +236,8 @@ def dhat_planar_ref(u_e_p: torch.Tensor, u_o_p: torch.Tensor,
                     psi_e_p: torch.Tensor, kappa: float, *,
                     tz_offset: Tuple[int, int] = (0, 0)) -> torch.Tensor:
     """``(1 - kappa^2 H_eo H_oe) psi_e`` as two plain hops plus the axpy
-    (the B2 plain version)."""
+    (the B2 plain version; the intermediate is stored in the spinor's
+    dtype, as B2's scratch is)."""
     tmp = hop_block_planar_ref(u_o_p, u_e_p, psi_e_p, 1,
                                tz_offset=tz_offset)
     return hop_block_planar_ref(u_e_p, u_o_p, tmp, 0, tz_offset=tz_offset,
@@ -232,13 +257,18 @@ def dhat_planar_stream_ref(u_e_p: torch.Tensor, u_o_p: torch.Tensor,
     consumes output row ``(s-3) % T`` from slots ``(s-3 .. s-1) %
     window`` (for ``s >= 3``).  Produce runs before consume within a
     step, as the kernel's grid barrier orders them only between steps;
-    both touch disjoint slots for ``window >= 4``.
+    both touch disjoint slots for ``window >= 4``.  bf16 rounds each
+    ring row and the result once, as the kernel stores them.
     """
     if window < 4:
         raise ValueError(
             f"stream window needs >= 4 rows (3 live for the +-t stencil "
             f"reach + 1 produce slot); got {window}")
-    c = torch.movedim(psi_e_p, -3, 0)        # (24, [N,] T, Z, Y, Xh)
+    low = psi_e_p.dtype == torch.bfloat16
+    if low:
+        u_e_p, u_o_p = _links_f32(u_e_p), _links_f32(u_o_p)
+    c = torch.movedim(psi_e_p.float() if low else psi_e_p, -3,
+                      0)                     # (24, [N,] T, Z, Y, Xh)
     ue = torch.movedim(u_e_p, 3, 1)          # (4, gc, T, Z, Y, Xh)
     uo = torch.movedim(u_o_p, 3, 1)
     Tl, Zl, Y = u_e_p.shape[1], u_e_p.shape[2], u_e_p.shape[4]
@@ -258,6 +288,9 @@ def dhat_planar_stream_ref(u_e_p: torch.Tensor, u_o_p: torch.Tensor,
                 rows(c, t + 1), rows(c, t - 1),
                 _row_parity([t], Zl, Y, tz_offset, dev), 1)
             ring[s % window] = torch.movedim(ring[s % window], -3, 0)
+            if low:
+                ring[s % window] = ring[s % window].to(
+                    torch.bfloat16).float()
         if s >= 3:
             t = (s - 3) % Tl
             hop = _hop_rows(
@@ -266,5 +299,8 @@ def dhat_planar_stream_ref(u_e_p: torch.Tensor, u_o_p: torch.Tensor,
                 ring[(s - 3) % window],
                 _row_parity([t], Zl, Y, tz_offset, dev), 0)
             psi0 = psi_e_p.narrow(-5, t, 1)
+            if low:
+                psi0 = psi0.float()
+            # copy_ rounds a bf16 result once (to nearest even).
             out.narrow(-5, t, 1).copy_(psi0 + (-k2) * hop)
     return out

@@ -20,8 +20,12 @@ Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with ``torch.empty``, launches on the current CUDA
 stream and raises if the launcher reports an error.  A CPU tensor runs
 the kernel's plain PyTorch version (:mod:`repro_torch.kernels.ref`); a
-CUDA tensor launches the kernel or raises.  :data:`LAUNCHES` counts
-kernel launches per wrapper (plain-version calls are not counted).
+CUDA tensor launches the kernel or raises.  The kernels take float32,
+float64 and bfloat16 fields; bf16 is stored in bf16 (scratch and ring
+included) and computed in f32 registers, each stored tensor rounded
+once.  Another dtype raises ``TypeError``; nothing is upcast.
+:data:`LAUNCHES` counts kernel launches per wrapper (plain-version calls
+are not counted).
 """
 from __future__ import annotations
 
@@ -56,7 +60,7 @@ RECON_FLOPS_PER_LINK = {
 }
 LINKS_EXPANDED_PER_SITE = 8
 
-_KERNEL_DTYPES = (torch.float32, torch.float64)
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
 
 #: kernel launches per wrapper since the last :func:`reset_launch_counts`
 LAUNCHES = {"hop_block_planar": 0, "dhat_planar_fused": 0,
@@ -161,12 +165,8 @@ def _check_fields(gauges, spinors, *, what: str, halo: bool = False):
     and the other spinors (``psi0``) have the output's shape."""
     src = spinors[0]
     if src.dtype not in _KERNEL_DTYPES:
-        if src.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                f"{what}: bf16 is not ported yet (the mixed-precision "
-                "slice); use float32 or float64")
         raise TypeError(f"{what}: dtype {src.dtype} not supported; use "
-                        "float32 or float64")
+                        "float32, bfloat16 or float64")
     if src.ndim not in (5, 6):
         raise ValueError(f"{what}: spinor must be (T, Z, 24, Y, Xh) or "
                          f"(nrhs, T, Z, 24, Y, Xh); got {tuple(src.shape)}")
@@ -226,8 +226,9 @@ def hop_block_planar(u_out_p: torch.Tensor, u_in_p: torch.Tensor,
     hop``.  With ``halo=True``, ``src_p`` and ``u_in_p`` are extended to
     ``(T+2, Z+2)`` in t and z, the centre at +1: z and t neighbours are
     read there and never wrap (x and y still do); ``u_out_p``, ``psi0_p``
-    and the result are not extended.  f32 and f64; bf16 raises
-    ``NotImplementedError``.  Tiles: :func:`geometry.hop_geometry`.
+    and the result are not extended.  f32, f64 and bf16 (computed in
+    f32, the result rounded to bf16 once, after the axpy).  Tiles:
+    :func:`geometry.hop_geometry`.
     """
     spinors = (src_p,) if axpy is None else (src_p, axpy[1])
     T, Z, Y, Xh, nrhs, gc = _check_fields((u_out_p, u_in_p), spinors,
@@ -298,8 +299,9 @@ def dhat_planar_fused(u_e_p: torch.Tensor, u_o_p: torch.Tensor,
                       tz_offset: Tuple[int, int] = (0, 0)) -> torch.Tensor:
     """``(1 - kappa^2 H_eo H_oe) psi_e`` as one cooperative launch (B2).
 
-    Pass 0 writes ``H_oe psi_e`` to a scratch spinor allocated here; a
-    grid-wide barrier; pass 1 applies ``H_eo`` and the axpy.  Each block
+    Pass 0 writes ``H_oe psi_e`` to a scratch spinor allocated here (in
+    the spinor's dtype: bf16 rounds the intermediate); a grid-wide
+    barrier; pass 1 applies ``H_eo`` and the axpy.  Each block
     handles tiles of sites x a group of sources
     (:func:`geometry.tile_geometry`).  Shapes and dtypes as
     :func:`hop_block_planar`; periodic single shard.
@@ -355,9 +357,10 @@ def dhat_planar_fused_stream(u_e_p: torch.Tensor, u_o_p: torch.Tensor,
     """``(1 - kappa^2 H_eo H_oe) psi_e`` as one cooperative launch whose
     odd intermediate lives in a ring of ``window`` t-rows (B3).
 
-    The ring, ``(nrhs, window, Z, 24, Y, Xh)``, is allocated here; its
-    size does not depend on T.  Tasks (a tile of a t-row x a group of
-    sources, produce or consume) order themselves by per-row counters
+    The ring, ``(nrhs, window, Z, 24, Y, Xh)`` in the spinor's dtype, is
+    allocated here; its size does not depend on T.  Tasks (a tile of a
+    t-row x a group of sources, produce or consume) order themselves by
+    per-row counters
     in device memory, kept per stream (:func:`stream_flags`), not by grid
     barriers; tiles as for :func:`dhat_planar_fused`.  Shapes and
     dtypes as :func:`hop_block_planar`; periodic single shard.

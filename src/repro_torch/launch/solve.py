@@ -6,6 +6,8 @@
         --lattice wilson-8x8x8x8 --device cpu           # CPU, torch_ref
     PYTHONPATH=src python -m repro_torch.launch.solve --nrhs 12 \
         --backend cuda_fused_stream                     # one propagator
+    PYTHONPATH=src python -m repro_torch.launch.solve --tol 1e-10 \
+        --inner-dtype bf16 --inner-tol 1e-3             # refined, f64 tol
 
 The arguments become one ``(LatticeSpec, BackendSpec, SolveSpec)``; the
 random gauge field is bound once into a :class:`repro_torch.api.
@@ -15,6 +17,11 @@ through the batched pipeline (12 = 4 spins x 3 colours, one point-source
 propagator).  Each solution, column by column, is checked against the
 full-lattice ``D_W`` of :mod:`repro_torch.core.wilson`, which no backend
 shares.
+``--inner-dtype f32|bf16`` runs mixed-precision iterative refinement:
+the backend is bound at that dtype for the inner solves, the sources
+are complex128, an f64 outer loop drives the residual to ``--tol``, and
+each ``solve i:`` line adds the outer passes, f64 operator applications
+and escalations; the full-lattice check runs in complex128.
 ``--backend auto`` is ``cuda_fused`` on ``cuda`` and ``torch_ref`` on
 ``cpu``; ``--backend help`` lists the registry and exits.
 """
@@ -48,7 +55,8 @@ def main(argv=None):
     solve the iterations and full-lattice residual (the most of any
     column) and their per-column lists (``col_iterations``,
     ``col_residuals``), the full-lattice solutions, kernel launches of
-    this run, session stats."""
+    this run, session stats, and for a refined solve ``results`` (each
+    solve's :class:`repro_torch.core.solver.RefinedResult`)."""
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.solve")
     ap.add_argument("--lattice", default="wilson-16x16x16x16",
                     choices=sorted(configs.QCD_CONFIGS))
@@ -69,6 +77,13 @@ def main(argv=None):
                     help="right-hand sides per solve; above 1 the block "
                          "runs through the batched solvers and kernels "
                          "(each gauge load serves the whole block)")
+    ap.add_argument("--inner-dtype", default="", choices=["", "f32", "bf16"],
+                    help="mixed-precision iterative refinement: inner "
+                         "Krylov solves in this dtype (the backend is "
+                         "bound at it), an f64 outer loop to --tol")
+    ap.add_argument("--inner-tol", type=float, default=1e-4,
+                    help="tolerance of each inner solve of a refined "
+                         "solve")
     ap.add_argument("--n-solves", type=int, default=1)
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--device", default="cuda",
@@ -82,17 +97,27 @@ def main(argv=None):
 
     device = resolve_device(args.device)
     lattice = api.LatticeSpec(configs.get_qcd(args.lattice).shape)
+    inner_dtype = args.inner_dtype or None
+    # A refined solve's bound matrix is its inner backend: bind it at the
+    # inner dtype (torch_ref has no dtype knob; its inner solves run at
+    # the gauge's complex64).
+    bname = api.BackendSpec(name=args.backend).resolve_name(device)
+    takes_dtype = bool(backends.backend_info(bname).dtypes)
     bspec = api.BackendSpec(
-        name=args.backend,
+        name=bname, dtype=inner_dtype if takes_dtype else None,
         gauge_compression=args.gauge_compression).validated(device)
     if args.nrhs < 1:
         ap.error(f"--nrhs must be >= 1; got {args.nrhs}")
     nrhs = args.nrhs
     sspec = api.SolveSpec(method=args.method, tol=args.tol,
-                          nrhs=nrhs if nrhs > 1 else None)
+                          nrhs=nrhs if nrhs > 1 else None,
+                          inner_dtype=inner_dtype,
+                          inner_tol=args.inner_tol)
     T, Z, Y, X = lattice.extents
     print(f"lattice {lattice.extents}, kappa={args.kappa}, nrhs={nrhs}, "
-          f"device={device}", flush=True)
+          f"device={device}"
+          + (f", inner_dtype={inner_dtype}, inner_tol={args.inner_tol:g}"
+             if inner_dtype else ""), flush=True)
 
     gen = torch.Generator().manual_seed(args.seed)
     U = su3.random_gauge(gen, lattice.extents, device=device)
@@ -103,14 +128,19 @@ def main(argv=None):
     print(f"backend {matrix.backend.name} (native domain: "
           f"{matrix.domain})", flush=True)
 
+    # A refined solve iterates its solution in f64: the sources, the
+    # solutions and the full-lattice check are complex128.
+    cdtype = torch.complex128 if inner_dtype else torch.complex64
+    U_check = U.to(cdtype)
     launches0 = dict(wilson_stencil.LAUNCHES)
     eta_gen = torch.Generator().manual_seed(args.seed + 100)
-    iterations, residuals, solutions = [], [], []
+    iterations, residuals, solutions, results = [], [], [], []
     col_iterations, col_residuals = [], []
     for i in range(args.n_solves):
         shape = ((nrhs,) if nrhs > 1 else ()) + (T, Z, Y, X, 4, 3)
         eta = torch.complex(torch.randn(shape, generator=eta_gen),
-                            torch.randn(shape, generator=eta_gen)).to(device)
+                            torch.randn(shape, generator=eta_gen)).to(
+                                device=device, dtype=cdtype)
         cols = eta if nrhs > 1 else eta[None]
         packed = [evenodd.pack(c) for c in cols]
         ee = torch.stack([e for e, _ in packed])
@@ -125,7 +155,7 @@ def main(argv=None):
                           zip(xe.reshape(cols.shape[0], *xe.shape[-6:]),
                               xo.reshape(cols.shape[0], *xo.shape[-6:]))])
         rels = [float(torch.linalg.vector_norm(
-                    c - wilson.apply_wilson(U, x, args.kappa))
+                    c - wilson.apply_wilson(U_check, x, args.kappa))
                     / torch.linalg.vector_norm(c))
                 for c, x in zip(cols, xi)]
         dt = time.perf_counter() - t0
@@ -135,6 +165,11 @@ def main(argv=None):
         line = (f"solve {i}: iters={max(its)} rel={max(rels):.2e} "
                 f"{dt:.2f}s ({dt / nrhs:.3f}s/rhs) "
                 f"~{flops / max(dt, 1e-9) / 1e9:.2f} GFlop/s sustained")
+        if inner_dtype:
+            line += (f"  [outer={res.outer_iterations} "
+                     f"f64_applies={res.f64_applies} "
+                     f"inner_iters={res.inner_iterations} "
+                     f"escalations={list(res.escalations)}]")
         if nrhs > 1:
             line += (f"\n  per column: iters={its} rel=["
                      + ", ".join(f"{r:.2e}" for r in rels) + "]")
@@ -144,16 +179,22 @@ def main(argv=None):
         col_iterations.append(its)
         col_residuals.append(rels)
         solutions.append(xi if nrhs > 1 else xi[0])
+        results.append(res)
 
     st = session.stats()
     for keystr, row in st["keys"].items():
         steady = (f"{row['steady_state_s']:.3f}s"
                   if row["steady_state_s"] is not None else "n/a")
+        if row["kind"] == "refined":
+            counts = (f"outer={row['outer_iterations']} "
+                      f"escalations={row['escalations']}")
+        else:
+            counts = f"iters={row['iterations']}" + (
+                f" col_iters={row['col_iterations']}"
+                if "col_iterations" in row else "")
         print(f"session[{keystr}]: solves={row['solves']} "
               f"first={row['first_solve_s']:.3f}s steady={steady} "
-              f"iters={row['iterations']}"
-              + (f" col_iters={row['col_iterations']}"
-                 if "col_iterations" in row else ""))
+              + counts)
     print(f"session: solves={st['solves']} traces={st['traces']} "
           f"cache_hits={st['cache_hits']} "
           f"cache_misses={st['cache_misses']}")
@@ -166,7 +207,8 @@ def main(argv=None):
             "nrhs": nrhs, "iterations": iterations, "residuals": residuals,
             "col_iterations": col_iterations,
             "col_residuals": col_residuals, "solutions": solutions,
-            "launches": launches, "stats": st}
+            "launches": launches, "stats": st,
+            **({"results": results} if inner_dtype else {})}
 
 
 if __name__ == "__main__":

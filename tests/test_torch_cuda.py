@@ -1,6 +1,7 @@
 """CUDA kernels B1 (periodic and halo mode), B2 and B3 against their
-plain versions, the two-launch Dhat against B2, and the batched solve
-through B3, on the card.
+plain versions in f32, f64 and bf16, the two-launch Dhat against B2,
+the batched solve through B3 and a refined solve with bf16 inner
+solves, on the card.
 
 These tests need a GPU (marker ``cuda``) and skip without one, deciding
 in the ``cuda`` fixture; they import neither JAX
@@ -10,7 +11,7 @@ nor the reference package, so on a machine without JAX they run with
         tests/test_torch_cuda.py
 
 Tolerance: f32 atol 5e-5, f64 atol 1e-10 (the reference's parity
-tolerances, tests/test_parity_matrix.py:46).
+tolerances, tests/test_parity_matrix.py:46); bf16 2^-7 of max|plain|.
 """
 import pytest
 import torch
@@ -265,3 +266,88 @@ def test_stream_flags_need_no_reset_and_streams_do_not_share(cuda):
     torch.cuda.synchronize()
     for i, out in got:
         assert torch.equal(out, want[i])
+
+
+def _bf16_close(got, want):
+    """bf16 kernel against its plain version: at most one bf16 rounding
+    step apart (both round nearly equal f32 values), 2^-7 of max|plain|."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= 2.0 ** -7 * float(want.float().abs().max()), err
+
+
+@pytest.mark.parametrize("mode", ["none", "two_row", "minimal"])
+@pytest.mark.parametrize("shape", [(3, 5, 3, 6), (4, 4, 4, 16)])
+def test_bf16_kernels_match_plain(cuda, mode, shape):
+    """bf16 B1 (periodic and halo mode, per-real and 16-byte link
+    copies), B2 and B3 against their plain versions; the two-launch Dhat
+    and B3 equal B2 bit for bit."""
+    u_e, u_o, src = _fields(cuda, torch.float32, mode, shape=shape)
+    u_e, u_o, src = u_e.bfloat16(), u_o.bfloat16(), src.bfloat16()
+    T, Z, Y, X = shape
+    hu_e, hu_o, hsrc = (a.bfloat16() for a in _fields(
+        cuda, torch.float32, mode, shape=(T + 2, Z + 2, Y, X)))
+    ws.reset_launch_counts()
+    for s, hs in ((src[0].contiguous(), hsrc[0].contiguous()),
+                  (src[:4], hsrc[:4]), (src, hsrc)):
+        psi0 = s.flip(-1).contiguous()
+        for parity in (0, 1):
+            u_out, u_in = (u_o, u_e) if parity else (u_e, u_o)
+            hu_out, hu_in = (hu_o, hu_e) if parity else (hu_e, hu_o)
+            hu_out = hu_out[:, 1:-1, 1:-1].contiguous()
+            for axpy in (None, (-0.37, psi0)):
+                _bf16_close(ws.hop_block_planar(u_out, u_in, s, parity,
+                                                axpy=axpy),
+                            ref.hop_block_planar_ref(u_out, u_in, s, parity,
+                                                     axpy=axpy))
+                _bf16_close(ws.hop_block_planar(hu_out, hu_in, hs, parity,
+                                                tz_offset=(1, 0), halo=True,
+                                                axpy=axpy),
+                            ref.hop_block_planar_ref(
+                                hu_out, hu_in, hs, parity, tz_offset=(1, 0),
+                                halo=True, axpy=axpy))
+        b2 = ws.dhat_planar_fused(u_e, u_o, s, KAPPA)
+        _bf16_close(b2, ref.dhat_planar_ref(u_e, u_o, s, KAPPA))
+        b3 = ws.dhat_planar_fused_stream(u_e, u_o, s, KAPPA)
+        _bf16_close(b3, ref.dhat_planar_stream_ref(u_e, u_o, s, KAPPA))
+        assert torch.equal(b3, b2)
+        assert torch.equal(ops.apply_dhat_planar(u_e, u_o, s, KAPPA), b2)
+    assert ws.LAUNCHES == {"hop_block_planar": 30, "dhat_planar_fused": 3,
+                           "dhat_planar_fused_stream": 3}
+
+
+def test_refined_bf16_solve_reaches_f64_tol(cuda):
+    """A refined solve (inner bf16 through cuda_fused, 3 sources) reaches
+    the f64 Schur residual 1e-10 in every column; every inner Dhat ran a
+    bf16 kernel."""
+    gen = torch.Generator().manual_seed(10)
+    shape = (4, 4, 4, 8)
+    U_e, U_o = evenodd.pack_gauge(su3.random_gauge(gen, shape, device=cuda))
+    eta = torch.complex(torch.randn((3, *shape, 4, 3), generator=gen,
+                                    dtype=torch.float64),
+                        torch.randn((3, *shape, 4, 3), generator=gen,
+                                    dtype=torch.float64)).to(cuda)
+    packed = [evenodd.pack(c) for c in eta]
+    ee = torch.stack([e for e, _ in packed])
+    eo = torch.stack([o for _, o in packed])
+    matrix = api.WilsonMatrix.bind(U_e, U_o, KAPPA, backend=api.BackendSpec(
+        "cuda_fused", dtype="bf16"))
+    dtypes = set()
+    entry = ops.apply_dhat_planar_any
+
+    def counted(u_e_p, u_o_p, src_p, kappa, **kw):
+        dtypes.add(src_p.dtype)
+        return entry(u_e_p, u_o_p, src_p, kappa, **kw)
+    ops.apply_dhat_planar_any = counted
+    try:
+        ws.reset_launch_counts()
+        _, _, res = api.SolveSession(matrix, api.SolveSpec(
+            method="cgnr", tol=1e-10, inner_dtype="bf16",
+            inner_tol=1e-3)).solve(ee, eo)
+        torch.cuda.synchronize()
+    finally:
+        ops.apply_dhat_planar_any = entry
+    assert bool(res.converged.all()) and res.escalations == ()
+    assert float(res.residual.max()) <= 1e-10
+    assert dtypes == {torch.bfloat16}
+    assert ws.LAUNCHES["hop_block_planar"] > 0

@@ -30,11 +30,11 @@ def _directions(D, d):
 
 @pytest.mark.parametrize("row", ROWS)
 @pytest.mark.parametrize("nrhs", [1, 2, 3, 5, 12])
-@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("itemsize", [2, 4, 8])
 def test_tiles_cover_every_site_source_direction_once(row, nrhs, itemsize):
     """Blocks (tile, group) x threads (d, r, s), as hop_tile maps them,
     cover each (site, source, direction) of a t-row exactly once (f64
-    splits the directions of one source)."""
+    splits the directions of one source; bf16 tiles as f32)."""
     Z, Y, Xh = row
     g = geo.tile_geometry(Z, Y, Xh, nrhs, itemsize)
     row_sites = Z * Y * Xh
@@ -56,7 +56,7 @@ def test_tiles_cover_every_site_source_direction_once(row, nrhs, itemsize):
     assert set(seen.values()) == {1}
 
 
-@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("itemsize", [2, 4, 8])
 def test_geometry_fits_a_block(itemsize):
     """Threads and shared memory fit one block at every source count;
     the partial sums fit the link region; warps hold one direction
@@ -74,7 +74,8 @@ def test_geometry_fits_a_block(itemsize):
             assert g.smem <= geo.SMEM_BUDGET_BYTES
             if g.D > 1:
                 assert (g.G * g.S) % 32 == 0
-                assert g.D * 24 * g.G <= geo.LINK_PLANES
+                assert g.D * 24 * g.G * geo.compute_itemsize(itemsize) \
+                    <= geo.LINK_PLANES * itemsize
                 assert 8 * -(-128 // (8 * g.G)) * geo.LINK_PLANES * \
                     itemsize > geo.SMEM_BUDGET_BYTES
 
@@ -82,9 +83,13 @@ def test_geometry_fits_a_block(itemsize):
 def test_geometry_does_not_depend_on_the_lattice_row():
     """D, G and S (hence the summation order) depend on the sources and
     the real type only; f32, the driven paths, keeps D = 1 with groups of
-    at most 4 sources; f64 splits the directions of one source."""
+    at most 4 sources, and so does bf16, whose tiles are f32's; f64
+    splits the directions of one source."""
     for nrhs in NRHS:
-        for it in (4, 8):
+        assert geo.tile_geometry(16, 16, 8, nrhs, 2).D == 1
+        b, f = (geo.hop_geometry(16, 16, 16, 8, nrhs, it) for it in (2, 4))
+        assert (b.D, b.G, b.S, b.threads) == (f.D, f.G, f.S, f.threads)
+        for it in (2, 4, 8):
             shapes = {(g.D, g.G, g.S) for g in
                       (geo.tile_geometry(Z, Y, Xh, nrhs, it)
                        for Z, Y, Xh in ROWS)}
@@ -115,6 +120,16 @@ def test_geometry_refuses_what_cannot_launch():
     with pytest.raises(ValueError, match="partial sums"):
         geo.check_geometry(geo.TileGeometry(2, 4, 1, 16, 1, 128,
                                             16 * 144 * 4), 4)
+    # Two groups of 2 sources: their f32 partial sums fit 4-byte links
+    # (2*24*2*4 <= 144*4 bytes a site) but not 2-byte bf16 ones.
+    geo.check_geometry(geo.TileGeometry(2, 2, 1, 32, 1, 128,
+                                        32 * 144 * 4), 4)
+    with pytest.raises(ValueError, match="partial sums"):
+        geo.check_geometry(geo.TileGeometry(2, 2, 1, 32, 1, 128,
+                                            32 * 144 * 2), 2)
+    assert geo.partials_fit(2, 1, 2) and not geo.partials_fit(2, 2, 2)
+    with pytest.raises(ValueError, match="itemsize"):
+        geo.smem_bytes(32, 3)
 
 
 @pytest.mark.parametrize("gc", [12, 8])
@@ -139,7 +154,7 @@ def test_in_place_expansion_reads_each_raw_link_before_it_is_overwritten(
     assert col == [("u", sl, k) for sl in range(8) for k in range(18)]
 
 
-@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("itemsize", [2, 4, 8])
 def test_hop_geometry_keeps_the_direction_split_of_b2(itemsize):
     """B1's D (hence each thread's summation order) and G are B2's at
     every source count and row; only the tile may shrink, to no less
@@ -181,7 +196,7 @@ def test_hop_geometry_at_the_main_lattices():
 @pytest.mark.parametrize("row", ROWS)
 @pytest.mark.parametrize("T", [1, 3])
 @pytest.mark.parametrize("nrhs", [1, 4, 5, 12])
-@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("itemsize", [2, 4, 8])
 def test_hop_blocks_cover_every_row_tile_group_once(row, T, nrhs,
                                                     itemsize):
     """B1's blocks, decoded as the kernel decodes blockIdx, and their
@@ -246,7 +261,7 @@ def _site_link(T, Z, Y, Xh, gc, halo, slot, t, site, c, out_parity,
 
 @pytest.mark.parametrize("row", ROWS + [(4, 2, 6), (2, 4, 8)])
 @pytest.mark.parametrize("nrhs", [1, 4])
-@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("itemsize", [2, 4, 8])
 @pytest.mark.parametrize("halo", [False, True])
 @pytest.mark.parametrize("gc", [18, 8])
 def test_link_copies_land_every_plane_of_a_tile_once(row, nrhs, itemsize,

@@ -19,7 +19,7 @@ from repro.core import evenodd as jeo
 from repro.kernels import layout as jlayout, wilson_stencil as jstencil
 from repro_torch import convert
 from repro_torch.core import evenodd
-from repro_torch.kernels import layout, ops, wilson_stencil as ws
+from repro_torch.kernels import layout, ops, ref, wilson_stencil as ws
 
 ATOL_F32 = 5e-5
 KAPPA = 0.13
@@ -64,6 +64,26 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
+def bf16_dhat_bound(u_e, u_o, psi, kappa):
+    """The f32 plain ``Dhat`` on the same bf16 values (the links as the
+    kernels hold them) and the most a bf16 ``Dhat`` may differ from it.
+
+    bf16 rounds the odd intermediate ``tmp = H_oe psi`` (each element by
+    at most 2^-9 of itself) and the result (2^-9 of max|out|).  ``H_eo``
+    carries the first error to at most 16 sqrt(24) times its largest
+    element: 8 terms, each a projector of norm 2 times a unitary link,
+    over a site's 24 reals.  The bound is ``2^-9 (max|out| + kappa^2 16
+    sqrt(24) max|tmp|)``, with 1 % for f32 rounding and the bf16 links'
+    distance from unitarity.
+    """
+    ue, uo = ref._links_f32(u_e), ref._links_f32(u_o)
+    tmp = ref.hop_block_planar_ref(uo, ue, psi.float(), 1)
+    out = ref.dhat_planar_ref(ue, uo, psi.float(), kappa)
+    bound = 2.0 ** -9 * (float(out.abs().max()) + kappa ** 2 * 16
+                         * 24 ** 0.5 * float(tmp.abs().max()))
+    return out, 1.01 * bound
+
+
 # (shape, out_parity, axpy, nrhs, gc): every value of every axis appears.
 B1_CASES = [("4x4x4x8", 1, False, 1, 18), ("3x5x3x6", 0, True, 4, 12),
             ("3x5x3x6", 1, True, 1, 8)]
@@ -94,6 +114,31 @@ def test_dhat_fused_matches_pallas_interpret(sname, nrhs, gc):
     got = ws.dhat_planar_fused(_t(u_e), _t(u_o), _t(psi), KAPPA)
     np.testing.assert_allclose(convert.to_numpy(got), np.asarray(want),
                                rtol=0, atol=ATOL_F32)
+
+
+def test_bf16_dhat_fused_matches_pallas_interpret():
+    """bf16 B2 (18-plane links, 4 sources) against the reference's bf16
+    Pallas kernel on the same bf16 inputs (err / max|ref| <= 2e-2, the
+    reference's per-op rounding; see test_torch_bf16.py), and against
+    the f32 plain version within :func:`bf16_dhat_bound`; the scratch
+    is bf16, so the two-launch ``Dhat`` (two B1 plain versions) agrees
+    bit for bit."""
+    u_e, u_o, psi, _ = planar_inputs("4x4x4x8", 18, 4)
+    ju_e, ju_o, jpsi = (jnp.asarray(a, jnp.bfloat16) for a in (u_e, u_o,
+                                                               psi))
+    want = np.asarray(jstencil.dhat_planar_fused(
+        ju_e, ju_o, jpsi, KAPPA, interpret=True), np.float32)
+    te, to, tpsi = (convert.planar_spinor_from_reference(np.asarray(a),
+                                                         "cpu")
+                    for a in (ju_e, ju_o, jpsi))
+    got = ws.dhat_planar_fused(te, to, tpsi, KAPPA)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, ops.apply_dhat_planar(te, to, tpsi, KAPPA))
+    got = got.float()
+    assert float((got - torch.from_numpy(want)).abs().max()) <= \
+        2e-2 * float(np.abs(want).max())
+    f32, bound = bf16_dhat_bound(te, to, tpsi, KAPPA)
+    assert float((got - f32).abs().max()) <= bound
 
 
 @pytest.mark.parametrize("sname", list(SHAPES))
@@ -326,13 +371,19 @@ def test_stream_policy_and_unknown_policy_raise():
 
 
 def test_wrappers_refuse_what_is_not_ported():
+    """bf16 runs (and stays bf16: no wrapper upcasts); float16 and
+    mismatched dtypes, non-contiguous operands and wrong gauge shapes
+    raise."""
     u_e, u_o, psi, _ = (_t(a) for a in planar_inputs("4x4x4x8", 18, 1))
-    with pytest.raises(NotImplementedError, match="bf16"):
-        ws.hop_block_planar(u_o.bfloat16(), u_e.bfloat16(), psi.bfloat16(),
-                            1)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        ws.dhat_planar_fused(u_e.bfloat16(), u_o.bfloat16(), psi.bfloat16(),
-                             KAPPA)
+    hop = ws.hop_block_planar(u_o.bfloat16(), u_e.bfloat16(),
+                              psi.bfloat16(), 1)
+    dhat = ws.dhat_planar_fused(u_e.bfloat16(), u_o.bfloat16(),
+                                psi.bfloat16(), KAPPA)
+    assert hop.dtype == dhat.dtype == torch.bfloat16
+    assert hop.shape == dhat.shape == psi.shape
+    assert bool(torch.isfinite(dhat.float()).all())
+    with pytest.raises(TypeError, match="float16"):
+        ws.hop_block_planar(u_o.half(), u_e.half(), psi.half(), 1)
     with pytest.raises(ValueError, match="dtype"):
         ws.hop_block_planar(u_o.double(), u_e, psi, 1)
     with pytest.raises(ValueError, match="contiguous"):

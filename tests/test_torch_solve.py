@@ -185,11 +185,17 @@ def test_cuda_request_without_gpu_raises():
 
 
 def test_specs_refuse_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="mixed"):
-        api.SolveSpec(inner_dtype="f32")
+    """Refinement and bf16 specs are accepted now; deflation and unknown
+    spellings still raise."""
+    assert api.SolveSpec(inner_dtype="f32").inner_dtype == "f32"
+    assert api.SolveSpec(inner_dtype="bf16", inner_tol=1e-3).inner_tol == \
+        1e-3
+    with pytest.raises(ValueError, match="inner_dtype"):
+        api.SolveSpec(inner_dtype="f16")
     with pytest.raises(NotImplementedError, match="deflation"):
         api.SolveSpec(deflate_rank=4)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        api.BackendSpec("cuda_fused", dtype="bf16")
-    with pytest.raises(NotImplementedError, match="bf16"):
-        api.BackendSpec("cuda_fused_stream", dtype="bf16")
+    assert api.BackendSpec("cuda_fused", dtype="bf16").dtype == "bf16"
+    assert api.BackendSpec("cuda_fused_stream", dtype="bfloat16"
+                           ).validated("cpu").dtype == "bf16"
+    with pytest.raises(ValueError, match="compute dtype"):
+        api.BackendSpec("cuda_fused", dtype="f16")

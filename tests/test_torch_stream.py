@@ -53,6 +53,26 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
+def bf16_dhat_bound(u_e, u_o, psi, kappa):
+    """The f32 plain ``Dhat`` on the same bf16 values (the links as the
+    kernels hold them) and the most a bf16 ``Dhat`` may differ from it.
+
+    bf16 rounds the odd intermediate ``tmp = H_oe psi`` (each element by
+    at most 2^-9 of itself) and the result (2^-9 of max|out|).  ``H_eo``
+    carries the first error to at most 16 sqrt(24) times its largest
+    element: 8 terms, each a projector of norm 2 times a unitary link,
+    over a site's 24 reals.  The bound is ``2^-9 (max|out| + kappa^2 16
+    sqrt(24) max|tmp|)``, with 1 % for f32 rounding and the bf16 links'
+    distance from unitarity.
+    """
+    ue, uo = ref._links_f32(u_e), ref._links_f32(u_o)
+    tmp = ref.hop_block_planar_ref(uo, ue, psi.float(), 1)
+    out = ref.dhat_planar_ref(ue, uo, psi.float(), kappa)
+    bound = 2.0 ** -9 * (float(out.abs().max()) + kappa ** 2 * 16
+                         * 24 ** 0.5 * float(tmp.abs().max()))
+    return out, 1.01 * bound
+
+
 def _reference(u_e, u_o, psi, tz_offset=(0, 0)):
     return np.asarray(jstencil.dhat_planar_fused_stream(
         jnp.asarray(u_e), jnp.asarray(u_o), jnp.asarray(psi), KAPPA,
@@ -77,6 +97,31 @@ def test_stream_wrapper_with_odd_origin_matches_pallas_interpret():
     np.testing.assert_allclose(convert.to_numpy(got),
                                _reference(u_e, u_o, psi, (1, 0)), rtol=0,
                                atol=ATOL_F32)
+
+
+def test_bf16_stream_matches_pallas_interpret():
+    """bf16 B3 (18-plane links, 2 sources, ring of 8 rows) against the
+    reference's bf16 Pallas kernel (4-row ring) on the same bf16 inputs
+    (err / max|ref| <= 2e-2, the reference's per-op rounding; see
+    test_torch_bf16.py), against the f32 plain version within
+    :func:`bf16_dhat_bound`, and equal to B2's plain version bit for
+    bit: both round the same intermediate once."""
+    u_e, u_o, psi = planar_inputs((4, 4, 4, 8), 18, 2)
+    ju_e, ju_o, jpsi = (jnp.asarray(a, jnp.bfloat16) for a in (u_e, u_o,
+                                                               psi))
+    want = np.asarray(jstencil.dhat_planar_fused_stream(
+        ju_e, ju_o, jpsi, KAPPA, interpret=True), np.float32)
+    te, to, tpsi = (convert.planar_spinor_from_reference(np.asarray(a),
+                                                         "cpu")
+                    for a in (ju_e, ju_o, jpsi))
+    got = ws.dhat_planar_fused_stream(te, to, tpsi, KAPPA)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, ws.dhat_planar_fused(te, to, tpsi, KAPPA))
+    got = got.float()
+    assert float((got - torch.from_numpy(want)).abs().max()) <= \
+        2e-2 * float(np.abs(want).max())
+    f32, bound = bf16_dhat_bound(te, to, tpsi, KAPPA)
+    assert float((got - f32).abs().max()) <= bound
 
 
 @pytest.mark.parametrize("shape", [(3, 5, 3, 6), (1, 2, 2, 4),
@@ -115,9 +160,10 @@ def test_stream_wrapper_counts_no_launch_on_cpu():
     ws.reset_launch_counts()
     ws.dhat_planar_fused_stream(u_e, u_o, psi, KAPPA)
     assert ws.LAUNCHES["dhat_planar_fused_stream"] == 0
-    with pytest.raises(NotImplementedError, match="bf16"):
-        ws.dhat_planar_fused_stream(u_e.bfloat16(), u_o.bfloat16(),
-                                    psi.bfloat16(), KAPPA)
+    out = ws.dhat_planar_fused_stream(u_e.bfloat16(), u_o.bfloat16(),
+                                      psi.bfloat16(), KAPPA)
+    assert out.dtype == torch.bfloat16 and out.shape == psi.shape
+    assert ws.LAUNCHES["dhat_planar_fused_stream"] == 0
 
 
 @pytest.mark.parametrize("shape", [(16, 16, 24, 16, 8),

@@ -54,7 +54,7 @@ import chip_smoke as cs  # noqa: E402
 # link one real at a time); the first is the package's.
 VARIANTS = {"cap168": (2, "cg"), "cap255": (1, "cg"), "cap112": (3, "cg"),
             "narrow": (2, None), "wide-ca": (2, "ca")}
-_CAP_LINE = "sizeof(R) == 4 ? 2 : 1"
+_CAP_LINE = "sizeof(compute_t<R>) == 4 ? 2 : 1"
 _WIDE_LINE = "const bool wide = "
 _WIDE_COPY = "cp.async.cg.shared.global [%0], [%1], 16"
 NAMES = ("wilson_dhat_fused", "wilson_dhat_stream", "wilson_hop")
@@ -104,8 +104,8 @@ def build_variants(variants):
             if src.name == "wilson_site_tile.cuh":
                 for line in (_CAP_LINE, _WIDE_LINE, _WIDE_COPY):
                     cs.check(line in text, f"no '{line}' in {src}")
-                text = text.replace(_CAP_LINE,
-                                    f"sizeof(R) == 4 ? {blocks} : 1")
+                text = text.replace(
+                    _CAP_LINE, f"sizeof(compute_t<R>) == 4 ? {blocks} : 1")
                 if wide is None:
                     text = text.replace(_WIDE_LINE, _WIDE_LINE + "false && ")
                 else:
