@@ -62,6 +62,22 @@ Run from a checkout: it builds the CUDA kernels from
    kernel of its path at the inner dtype (counted with its dtype at
    ``ops.apply_dhat_planar_any``), or at a rung's dtype after a printed
    escalation;
+7c. drives block CG on the propagator (``--method blockcg --nrhs 12``,
+   ``auto``), counters set to 0 just before: every column's full-lattice
+   residual, and every ``Dhat`` two B1 launches, 12 sources wide,
+   counted exactly (the true-residual replacements every 50 iterations
+   and the exit-time residual included); prints its iterations per
+   column and steady time beside cgnr's on the same sources;
+7d. drives low-mode deflation at 16^4 (``deflation``): the CLI with
+   ``--deflate-rank 24 --deflate-iters 200 --n-solves 3`` on its hot
+   gauge, every ``Dhat`` counted (the Lanczos steps and the solves on
+   B2, the batched apply over the 200-vector basis on B1); the API on a
+   weak gauge (``su3.weak_gauge``, eps 0.2, kappa 0.124), 16 sources
+   undeflated, Lanczos-deflated and through a recycle stream, each solve
+   within the residual gate, a Lanczos solve no slower than the
+   undeflated one on the same source, every ``Dhat`` through B2 or B1;
+   a ``BasisSnapshot`` round trip of the basis, bit-equal, whose restore
+   solves in the same iterations;
 8. times the unbatched solve against the batched pipeline with a block
    of one source at wilson-16x16x16x16 (the candidate removal of the
    unbatched solvers), and steady solves under each Dhat policy (two B1
@@ -79,19 +95,22 @@ Run from a checkout: it builds the CUDA kernels from
    (halo mode included) beside its bound; then the steady refined
    solves against a pure-f64 ``cuda_fused`` solve to the same 1e-10, and
    the bf16 kernels beside the f32 ones at ``BF16_POINTS`` with their
-   bf16 bounds.  With ``--parent-log FILE``
+   bf16 bounds, and B1 at 16^4 with the Lanczos basis's 200 sources
+   beside its bound and against its plain version.  With ``--parent-log FILE``
    (repeatable), the output of other runs in the same call (the parent
    commit's ``chip_smoke.py``; ``tools/time_tree.py`` on another tree)
    gives their times at each policy and B1 point beside this run's.
 
 It exits non-zero at the first failed phase.  The line before the last
-is a JSON object ``{"kernels": [...]}``; the last line is
+is a JSON object ``{"kernels": [...]}`` (with each kernel's launches on
+the block CG and deflation paths, and B1's row the 16^4 x 200 timing); the last line is
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the
 reference package.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import re
 import statistics
@@ -177,6 +196,14 @@ REFINED = (("auto", "f32", 1e-4, 1, "dhat_planar_fused"),
            ("auto", "bf16", 1e-3, 12, "hop_block_planar"),
            ("cuda_fused_stream", "bf16", 1e-3, 12,
             "dhat_planar_fused_stream"))
+# Low-mode deflation at full width (16^4, f32, cuda_fused): rank and
+# Lanczos steps (bench_deflation.py's 8^4 setting), the weak-field gauge
+# (su3.weak_gauge, eps 0.2) at bench_deflation.py's kappa, where
+# undeflated cgnr reaches 1e-6 well within max_iters (41-47 iterations
+# on an H100, PERF.md section 6), and the length of each run's stream.
+DEFLATION_LATTICE = "wilson-16x16x16x16"
+DEFLATION_RANK, DEFLATION_ITERS = 24, 200
+WEAK_EPS, WEAK_KAPPA, WEAK_SOLVES = 0.2, 0.124, 16
 # (lattice, nrhs) where the bf16 kernels are timed beside the f32 ones.
 BF16_POINTS = (("wilson-16x16x16x16", 1), ("wilson-16x16x16x16", 12),
                ("wilson-64x16x16x8", 1))
@@ -633,43 +660,62 @@ def phase_bf16(device):
     return worst
 
 
+class DhatCount:
+    """Counts, while entered, the ``Dhat`` applications at the policy
+    entry point (``ops.apply_dhat_planar_any``): in all, by the dtype of
+    their vector, and by their source count (``widths``: 1 for an
+    unbatched vector); the launch counters are set to 0 on entry and
+    read on exit (``launches``), after a synchronise."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops, wilson_stencil as ws
+        self.dhats, self.dtypes, self.widths = 0, {}, {}
+        self._entry = ops.apply_dhat_planar_any
+
+        def counted(*args, **kwargs):
+            v = args[2]
+            self.dhats += 1
+            name = str(v.dtype).replace("torch.", "")
+            self.dtypes[name] = self.dtypes.get(name, 0) + 1
+            width = int(v.shape[0]) if v.ndim == 6 else 1
+            self.widths[width] = self.widths.get(width, 0) + 1
+            return self._entry(*args, **kwargs)
+        ops.apply_dhat_planar_any = counted
+        ws.reset_launch_counts()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        from repro_torch.kernels import ops, wilson_stencil as ws
+        ops.apply_dhat_planar_any = self._entry
+        torch.cuda.synchronize()
+        self.launches = dict(ws.LAUNCHES)
+        return False
+
+
 def drive(argv, what, full_tol=1e-5):
     """``repro_torch.launch.solve.main(argv)`` with the launch counters
     set to 0 just before and read just after, and its ``Dhat``
     applications counted at the policy entry point
-    (``ops.apply_dhat_planar_any``), by the dtype of their vector; checks
-    every column's full-lattice residual against ``full_tol``; the run's
-    summary with ``launches``, ``dhats`` and ``dhat_dtypes`` added."""
-    import torch
-
-    from repro_torch.kernels import ops, wilson_stencil as ws
+    (``ops.apply_dhat_planar_any``, :class:`DhatCount`), by the dtype and
+    the source count of their vector; checks every column's full-lattice
+    residual against ``full_tol``; the run's summary with ``launches``,
+    ``dhats``, ``dhat_dtypes`` and ``dhat_widths`` added."""
     from repro_torch.launch import solve as launch_solve
     print(f"{what}: python -m repro_torch.launch.solve {' '.join(argv)}",
           flush=True)
-    dhats = [0]
-    dtypes = {}
-    policy_entry = ops.apply_dhat_planar_any
-
-    def counted(*args, **kwargs):
-        dhats[0] += 1
-        name = str(args[2].dtype).replace("torch.", "")
-        dtypes[name] = dtypes.get(name, 0) + 1
-        return policy_entry(*args, **kwargs)
-    ops.apply_dhat_planar_any = counted
-    try:
-        ws.reset_launch_counts()
+    with DhatCount() as count:
         out = launch_solve.main(argv)
-        torch.cuda.synchronize()
-        launches = dict(ws.LAUNCHES)
-    finally:
-        ops.apply_dhat_planar_any = policy_entry
-    print(f"{what}: {dhats[0]} Dhat applications (by dtype {dtypes}), "
-          f"launches {launches}", flush=True)
+    print(f"{what}: {count.dhats} Dhat applications (by dtype "
+          f"{count.dtypes}, by source count {count.widths}), launches "
+          f"{count.launches}", flush=True)
     for i, rels in enumerate(out["col_residuals"]):
         check(max(rels) <= full_tol,
               f"{what} solve {i}: column full-lattice residuals {rels} "
               f"(each <= {full_tol:g})")
-    return dict(out, launches=launches, dhats=dhats[0], dhat_dtypes=dtypes)
+    return dict(out, launches=count.launches, dhats=count.dhats,
+                dhat_dtypes=count.dtypes, dhat_widths=count.widths)
 
 
 def check_path(what, run, kernel, n_solves):
@@ -808,6 +854,292 @@ def phase_refined():
                  else ""), flush=True)
         runs[(backend, dtype, nrhs)] = run
     return runs
+
+
+def _steady(run):
+    """The steady solve time (s) of a CLI run's one session key."""
+    (row,) = run["stats"]["keys"].values()
+    return row["steady_state_s"]
+
+
+def phase_blockcg(cgnr_run):
+    """Block CG on the propagator (PROPAGATOR: 12 sources, 2 solves)
+    through the CLI with ``--backend auto``, counters set to 0 just
+    before: every column's full-lattice residual, and exact accounting of
+    every ``Dhat`` (two B1 launches each, 12 sources wide): per solve of
+    K iterations, one for the normal right-hand side, two per iteration,
+    two per true-residual replacement (every
+    ``BLOCKCG_RECOMPUTE_DEFAULT`` iterations), two for the exit-time
+    residual and one for the true-system residual, plus B1's two hops
+    per solve.  Prints the iterations per column beside ``cgnr``'s on the
+    same sources (``cgnr_run``, slice2's auto run) and both steady
+    times."""
+    from repro_torch.core import solver
+    lattice, nrhs, n_solves = PROPAGATOR
+    run = drive(["--lattice", lattice, "--nrhs", str(nrhs), "--method",
+                 "blockcg", "--tol", "1e-6", "--backend", "auto",
+                 "--n-solves", str(n_solves), "--seed", "1", "--device",
+                 "cuda"], "blockcg")
+    check(run["backend"] == "cuda_fused"
+          and all(x.device.type == "cuda" for x in run["solutions"]),
+          f"blockcg ran on {run['backend']!r}, not cuda_fused on the card")
+    every = solver.BLOCKCG_RECOMPUTE_DEFAULT
+    ks = [max(c) for c in run["col_iterations"]]
+    want_dhats = sum(2 * k + 2 * (k // every) + 4 for k in ks)
+    want = {"hop_block_planar": 2 * want_dhats + 2 * n_solves,
+            "dhat_planar_fused": 0, "dhat_planar_fused_stream": 0}
+    check(run["dhats"] == want_dhats
+          and run["dhat_widths"] == {nrhs: want_dhats}
+          and run["launches"] == want,
+          f"blockcg: {run['dhats']} Dhats by width {run['dhat_widths']}, "
+          f"launches {run['launches']}; expected {want_dhats} Dhats "
+          f"{nrhs} wide for {ks} iterations, launches {want}")
+    print(f"blockcg: {lattice} x {nrhs}, tol 1e-6, auto (two B1 launches "
+          f"per Dhat, counted exactly); iterations per column "
+          f"{run['col_iterations']} against cgnr's "
+          f"{cgnr_run['col_iterations']} on the same sources; steady solve "
+          f"blockcg "
+          f"{_steady(run) * 1e3:.2f} ms, cgnr {_steady(cgnr_run) * 1e3:.2f}"
+          f" ms; full-lattice residual max "
+          f"{max(max(r) for r in run['col_residuals']):.2e}", flush=True)
+    return run
+
+
+def _full_residual(U, xe, xo, ee, eo, kappa):
+    """``|eta - D_W xi| / |eta|`` with the full-lattice ``D_W``, which
+    no backend shares."""
+    import torch
+
+    from repro_torch.core import evenodd, wilson
+    eta = evenodd.unpack(ee, eo)
+    xi = evenodd.unpack(xe, xo)
+    return float(torch.linalg.vector_norm(
+        eta - wilson.apply_wilson(U, xi, kappa))
+        / torch.linalg.vector_norm(eta))
+
+
+def phase_deflation(device):
+    """Low-mode deflation at DEFLATION_LATTICE, f32, on the card.
+
+    1. The CLI on its hot gauge with ``--deflate-rank 24 --deflate-iters
+       200 --method cgnr --n-solves 3`` (``auto``), counters set to 0
+       just before: the residual gates, and every ``Dhat`` through its
+       kernel, counted exactly: the Lanczos basis's one batched normal
+       apply (two ``Dhat``s, m = 200 sources, two B1 launches each), its
+       m - 1 single applies and every solve's (one B2 launch each: a
+       deflated cgnr solve of K iterations takes 2K + 5 ``Dhat``s).
+    2. The API on a weak gauge (WEAK_EPS, WEAK_KAPPA), ``cuda_fused``,
+       WEAK_SOLVES sources through three sessions: undeflated, Lanczos
+       (rank 24, 200 steps) and a recycle stream; each solve's
+       full-lattice residual at most 1e-5, every ``Dhat`` through B2 (or
+       two B1 launches for the batched apply), a Lanczos solve no slower
+       than the undeflated one on the same source; iterations, Ritz
+       values kept, fill, build and steady times printed.  (The recycle
+       stream's iterations are printed, not held: on these gauges both
+       packages' recycle mode takes more iterations than an undeflated
+       solve, PERF.md section 6.)
+    3. A ``BasisSnapshot`` round trip of the Lanczos basis: bit-equal
+       tensors, and a fresh bind restoring it solves in the same
+       iterations.
+    Returns the CLI run, the API run's counts and the batched width."""
+    import shutil
+
+    import torch
+
+    from repro_torch import api
+    from repro_torch.core import deflate, evenodd, su3
+    from repro_torch.resilience import BasisSnapshot
+    n_solves = 3
+    run = drive(["--lattice", DEFLATION_LATTICE, "--deflate-rank",
+                 str(DEFLATION_RANK), "--deflate-iters",
+                 str(DEFLATION_ITERS), "--method", "cgnr", "--tol", "1e-6",
+                 "--backend", "auto", "--n-solves", str(n_solves), "--seed",
+                 "1", "--device", "cuda"], "deflation cli")
+    check(run["backend"] == "cuda_fused"
+          and all(x.device.type == "cuda" for x in run["solutions"]),
+          f"deflation cli ran on {run['backend']!r}, not cuda_fused on the "
+          "card")
+    widths = dict(run["dhat_widths"])
+    single = widths.pop(1, 0)
+    m = DEFLATION_ITERS
+    want_single = 2 * (m - 1) + sum(2 * k + 5 for k in run["iterations"])
+    want = {"hop_block_planar": 2 * 2 + 2 * n_solves,
+            "dhat_planar_fused": want_single, "dhat_planar_fused_stream": 0}
+    check(widths == {m: 2} and single == want_single
+          and run["launches"] == want,
+          f"deflation cli: Dhats by width {run['dhat_widths']}, launches "
+          f"{run['launches']}; expected 2 of width {m}, {want_single} "
+          f"single for iterations {run['iterations']}, launches {want}")
+    (row,) = run["stats"]["keys"].values()
+    d = row["deflation"]
+    print(f"deflation cli: hot gauge, iterations {run['iterations']}, "
+          f"basis {d['mode']} {d['filled']}/{d['rank']} active "
+          f"{d['active']}; every Dhat counted: B2 {single}, B1 for the "
+          f"batched apply over {m} vectors", flush=True)
+
+    shape = CHECK_SHAPES[DEFLATION_LATTICE]
+    gen = torch.Generator().manual_seed(7)
+    U = su3.weak_gauge(gen, shape, eps=WEAK_EPS, device=device)
+    U_e, U_o = evenodd.pack_gauge(U)
+    srcs = [_sources(shape, 1, device, gen, torch.complex64)
+            for _ in range(WEAK_SOLVES)]
+    matrix = api.WilsonMatrix.bind(U_e, U_o, WEAK_KAPPA,
+                                   backend="cuda_fused")
+    check(matrix.backend.name == "cuda_fused" and matrix.device.type
+          == "cuda", f"weak gauge bound to {matrix!r}")
+    base = dict(method="cgnr", tol=1e-6, max_iters=2000)
+    specs = {"undeflated": api.SolveSpec(**base),
+             "lanczos": api.SolveSpec(**base, deflate_rank=DEFLATION_RANK,
+                                      deflate_iters=DEFLATION_ITERS),
+             "recycle": api.SolveSpec(**base, deflate_rank=DEFLATION_RANK,
+                                      deflate_mode="recycle")}
+    out = {}
+    with DhatCount() as count:
+        for label, spec in specs.items():
+            t0 = time.perf_counter()
+            if spec.deflate_rank:
+                matrix.ensure_deflation(spec.deflate_rank, spec.deflate_mode,
+                                        lanczos_iters=spec.deflate_iters)
+            torch.cuda.synchronize()
+            build = time.perf_counter() - t0
+            sess = api.SolveSession(matrix, spec)
+            iters, rels, walls = [], [], []
+            for ee, eo in srcs:
+                t0 = time.perf_counter()
+                xe, xo, res = sess.solve(ee, eo)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                rel = _full_residual(U, xe, xo, ee, eo, WEAK_KAPPA)
+                check(res.converged and xe.device.type == "cuda"
+                      and rel <= 1e-5,
+                      f"weak gauge {label}: converged {res.converged}, "
+                      f"full-lattice residual {rel:.2e}, solution on "
+                      f"{xe.device} (must be the card)")
+                iters.append(int(res.iterations))
+                rels.append(rel)
+            (row,) = sess.stats()["keys"].values()
+            out[label] = {"iterations": iters, "build_s": build,
+                          "steady_s": row["steady_state_s"],
+                          "wall_s": statistics.median(walls[1:]),
+                          "max_rel": max(rels),
+                          "deflation": row.get("deflation")}
+            if spec.deflate_rank:
+                state = matrix.ensure_deflation(
+                    spec.deflate_rank, spec.deflate_mode,
+                    lanczos_iters=spec.deflate_iters)
+                b = state.basis
+                out[label]["ritz"] = sorted(
+                    b.gram.diagonal()[b.mask].real.tolist())
+    widths = dict(count.widths)
+    single = widths.pop(1, 0)
+    total = WEAK_SOLVES * len(specs)
+    want = {"hop_block_planar": 2 * 2 + 2 * total,
+            "dhat_planar_fused": single, "dhat_planar_fused_stream": 0}
+    check(list(widths.values()) == [2] and count.launches == want,
+          f"weak gauge: Dhats by width {count.widths}, launches "
+          f"{count.launches}; expected one batched normal apply (2 Dhats) "
+          f"and launches {want}")
+    (lanczos_m,) = widths
+    for label, r in out.items():
+        d = r["deflation"]
+        print(f"deflation weak gauge: {DEFLATION_LATTICE} eps {WEAK_EPS} "
+              f"kappa {WEAK_KAPPA} cuda_fused f32 cgnr tol 1e-6, {label}: "
+              f"iterations {r['iterations']}; build "
+              f"{r['build_s'] * 1e3:.1f} ms; steady solve "
+              f"{r['steady_s'] * 1e3:.2f} ms (median of "
+              f"{WEAK_SOLVES - 1} after the first; with the harvest "
+              f"{r['wall_s'] * 1e3:.2f} ms); full-lattice residual max "
+              f"{r['max_rel']:.2e}"
+              + (f"; basis {d['filled']}/{d['rank']} filled, {d['active']}"
+                 f" active, Ritz values kept "
+                 + ", ".join(f"{v:.5f}" for v in r["ritz"])
+                 if d else ""), flush=True)
+    plain = out["undeflated"]["iterations"]
+    lanczos = out["lanczos"]["iterations"]
+    check(all(a <= b for a, b in zip(lanczos, plain)),
+          f"Lanczos-deflated solves {lanczos} take more iterations than "
+          f"undeflated ones {plain} on the same sources")
+    recycle = out["recycle"]["iterations"]
+    print(f"deflation weak gauge: per source, Lanczos minus undeflated "
+          f"{[a - b for a, b in zip(lanczos, plain)]}, recycle minus "
+          f"undeflated {[a - b for a, b in zip(recycle, plain)]}; the "
+          f"batched Lanczos apply was {lanczos_m} sources wide; every Dhat "
+          f"counted: B2 {single}, B1 {count.launches['hop_block_planar']}",
+          flush=True)
+
+    snapdir = ROOT / "build" / "chip_smoke_basis"
+    shutil.rmtree(snapdir, ignore_errors=True)
+    try:
+        state = matrix.ensure_deflation(DEFLATION_RANK, "lanczos",
+                                        lanczos_iters=DEFLATION_ITERS)
+        t0 = time.perf_counter()
+        BasisSnapshot(snapdir).save(state.basis.count(), state.basis)
+        save_s = time.perf_counter() - t0
+        template = deflate.empty_basis(DEFLATION_RANK,
+                                       state.basis.vectors[0])
+        restored = BasisSnapshot(snapdir).resume(template)
+        check(restored is not None and all(
+            torch.equal(a, b) for a, b in zip(restored, state.basis)),
+              "BasisSnapshot round trip of the 16^4 basis is not bit-equal")
+        fresh = api.WilsonMatrix.bind(U_e, U_o, WEAK_KAPPA,
+                                      backend="cuda_fused")
+        sess = api.SolveSession(fresh, dataclasses.replace(
+            specs["lanczos"], deflate_checkpoint=str(snapdir)))
+        _, _, res = sess.solve(*srcs[0])
+        again = fresh.ensure_deflation(DEFLATION_RANK, "lanczos",
+                                       checkpoint=str(snapdir),
+                                       lanczos_iters=DEFLATION_ITERS)
+        check(all(torch.equal(a, b) for a, b in zip(again.basis,
+                                                     state.basis))
+              and int(res.iterations) == lanczos[0],
+              f"restored basis: solve took {res.iterations} iterations, "
+              f"the built one {lanczos[0]}")
+        nbytes = sum(t.numel() * t.element_size() for t in state.basis)
+        print(f"deflation snapshot: {nbytes / 1e6:.1f} MB basis saved in "
+              f"{save_s:.2f} s, restored bit-equal; a fresh bind restoring "
+              f"it solves source 0 in {int(res.iterations)} iterations "
+              f"(built: {lanczos[0]})", flush=True)
+    finally:
+        shutil.rmtree(snapdir, ignore_errors=True)
+    return {"cli": run, "weak": out, "launches": count.launches,
+            "m": lanczos_m}
+
+
+def time_lanczos_b1(device, nrhs):
+    """B1 at the Lanczos basis's batched apply: DEFLATION_LATTICE x
+    ``nrhs`` sources, f32, full links, against its plain version (f32
+    atol), device time (median of 20 CUDA-event readings) beside its
+    bound (``hop_traffic_model``), and the plain version's wall time."""
+    import torch
+
+    from repro_torch.kernels import ref, wilson_stencil as ws
+    T, Z, Y, X = CHECK_SHAPES[DEFLATION_LATTICE]
+    gauges, spinor = fields((T, Z, Y, X), "f32", device, seed=15)
+    u_e, u_o = gauges[18]
+    psi = spinor(nrhs)
+    err = float((ws.hop_block_planar(u_e, u_o, psi, 0)
+                 - ref.hop_block_planar_ref(u_e, u_o, psi, 0)).abs().max())
+    check(err <= ATOL["f32"], f"B1 at {DEFLATION_LATTICE} x {nrhs}: max "
+                              f"abs err {err:.3e}")
+    ms = device_ms(lambda: ws.hop_block_planar(u_e, u_o, psi, 0), 20)
+    plain_ms = call_ms(lambda: ref.hop_block_planar_ref(u_e, u_o, psi, 0),
+                       1, warmup=0)
+    m = ws.hop_traffic_model(T, Z, Y, X // 2, nrhs=nrhs, itemsize=4)
+    t_bytes = m["bytes_total"] / PEAK_BYTES_PER_S * 1e3
+    t_ops = m["flops"] / PEAK_FLOPS["f32"] * 1e3
+    bound = max(t_bytes, t_ops)
+    row = {"lattice": DEFLATION_LATTICE, "nrhs": nrhs, "ms": ms,
+           "bound_ms": bound, "plain_ms": plain_ms, "max_abs_err": err,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    print(f"time: B1 at the Lanczos batched apply, {DEFLATION_LATTICE} x "
+          f"{nrhs} f32 gc=18: device {ms * 1e3:.1f} us, bound "
+          f"{bound * 1e3:.1f} us ({row['bound_by']}, {m['bytes_total']} B "
+          f"at 3.35 TB/s), {bound / ms:.0%} of bound; plain version "
+          f"{plain_ms * 1e3:.1f} us per call; max abs err {err:.3e}",
+          flush=True)
+    del psi
+    torch.cuda.empty_cache()
+    return row
 
 
 def phase_block_of_one(device, shape=None, n_solves=6):
@@ -1443,6 +1775,8 @@ def main(argv=None):
     runs2 = timed("slice2", phase_slice2)
     timed("cuda_hop", phase_cuda_hop)
     refined = timed("refined", phase_refined)
+    blockcg = timed("blockcg", phase_blockcg, runs2["auto"])
+    deflation = timed("deflation", phase_deflation, device)
     timed("block_of_one", phase_block_of_one, device)
     timed("policy_solves", phase_policy_solves, device)
     copy_bps = copy_bandwidth(device)
@@ -1460,6 +1794,8 @@ def main(argv=None):
     timed("b1_times", time_b1, device, parent)
     timed("refined_times", phase_refined_times, device)
     bf16_rows = timed("bf16_times", time_bf16, device)
+    lanczos_b1 = timed("lanczos_b1", time_lanczos_b1, device,
+                       deflation["m"])
     print("phase seconds: " + ", ".join(f"{k} {v:.1f}"
                                         for k, v in phase_s.items()),
           flush=True)
@@ -1524,6 +1860,19 @@ def main(argv=None):
             "ms_bf16": b["ms"], "bound_ms_bf16": b["bound_ms"],
             "bound_by_bf16": b["bound_by"], "plain_ms_bf16": b["plain_ms"],
             "lattice_bf16": lattice, "nrhs_bf16": nrhs})
+    # The block CG and deflation paths: each kernel's launches there (the
+    # deflation CLI run and the API runs on the weak gauge), and B1 at the
+    # Lanczos basis's batched apply.
+    for row in kernels:
+        name = row["name"]
+        row["launches_blockcg"] = blockcg["launches"][name]
+        row["launches_deflation"] = (deflation["cli"]["launches"][name]
+                                     + deflation["launches"][name])
+    check(kernels[0]["launches_blockcg"] > 0
+          and kernels[0]["launches_deflation"] > 0
+          and kernels[1]["launches_deflation"] > 0,
+          "B1 or B2 made no launch on the blockcg or deflation path")
+    kernels[0]["lanczos_batch"] = lanczos_b1
     print(f"total: {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

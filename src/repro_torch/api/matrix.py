@@ -5,16 +5,25 @@ once: the backend's layout conversion (complex -> planar planes, link
 compression) and its policy happen at :meth:`WilsonMatrix.bind`, on the
 gauge's device, and every application reuses the bound state.  The
 exact complex gauge is kept beside it for the f64 operator of refined
-solves (:meth:`WilsonMatrix.gauge_complex`).
+solves (:meth:`WilsonMatrix.gauge_complex`), and the deflation states
+of its normal operator are cached on it
+(:meth:`WilsonMatrix.ensure_deflation`).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from .. import backends
 from .specs import BackendSpec, LatticeSpec
 
-__all__ = ["WilsonMatrix"]
+__all__ = ["WilsonMatrix", "LANCZOS_SEED"]
+
+# The seed of the Lanczos start vector: a rebound gauge reproduces its
+# basis.  (The reference draws from jax.random, which torch cannot
+# reproduce, so the two packages' bases differ by their start vector.)
+LANCZOS_SEED = 20240331
 
 
 class WilsonMatrix:
@@ -40,6 +49,7 @@ class WilsonMatrix:
         self.backend = backend
         self.device = device
         self._exact_gauge = gauge
+        self._deflation = {}
 
     @classmethod
     def bind(cls, U_e, U_o, kappa: float,
@@ -67,6 +77,98 @@ class WilsonMatrix:
                 "WilsonMatrix.bind to run refined solves")
         U_e, U_o = self._exact_gauge
         return U_e.to(dtype), U_o.to(dtype)
+
+    def ensure_deflation(self, rank: int, mode: str = "lanczos", *,
+                         checkpoint: Optional[str] = None,
+                         lanczos_iters: Optional[int] = None):
+        """The deflation state of ``(rank, mode, lanczos_iters)`` for
+        this gauge's normal operator ``Dhat^dag Dhat``, built on first
+        request and cached on the matrix.
+
+        ``"lanczos"`` runs the Lanczos pass from a unit start vector of
+        a fixed-seed generator (``LANCZOS_SEED``), encoded by the
+        backend.  On a planar backend it runs over complex spinors
+        (encoded and decoded around each application) for ``rank // 2``
+        complex pairs, and the basis holds the planar form of their
+        complex span (:func:`repro_torch.core.deflate.
+        planar_from_complex`): the reference runs it on the planar
+        vectors, where it resolves one vector of each pair ``v, i v``
+        and leaves the pair's eigenvalue in place.  ``"recycle"`` starts
+        empty and grows from harvested solutions (driven by
+        :class:`~repro_torch.api.SolveSession`), with its harvest filter
+        scaled by a power-iteration estimate of the top eigenvalue.
+        ``checkpoint`` names a :class:`repro_torch.resilience.
+        BasisSnapshot` directory: a basis of matching shapes found there
+        is restored instead of built, and recycle harvests are saved as
+        they land.
+        """
+        from ..core import deflate
+        rank = int(rank)
+        if rank < 1:
+            raise ValueError(f"deflation rank must be >= 1; got {rank}")
+        if mode not in ("lanczos", "recycle"):
+            raise ValueError(f"unknown deflation mode {mode!r}; choose "
+                             "'lanczos' or 'recycle'")
+        key = (rank, str(mode), lanczos_iters)
+        state = self._deflation.get(key)
+        if state is not None:
+            return state
+        ops, kappa = self.ops, self.kappa
+
+        def normal(v):
+            return ops.apply_dhat_dagger_native(
+                ops.apply_dhat_native(v, kappa), kappa)
+
+        def normal_batched(v):
+            return ops.apply_dhat_dagger_native_batched(
+                ops.apply_dhat_native_batched(v, kappa), kappa)
+
+        gen = torch.Generator().manual_seed(LANCZOS_SEED)
+        psi = torch.randn(self.lattice.spinor_eo_shape() + (2,),
+                          generator=gen)
+        v0 = ops.to_domain(torch.complex(psi[..., 0], psi[..., 1]).to(
+            self.device))
+        snap = None
+        if checkpoint is not None:
+            from ..resilience import BasisSnapshot
+            snap = BasisSnapshot(checkpoint)
+        template = deflate.empty_basis(rank, v0)
+        restored = snap.resume(template) if snap is not None else None
+        if mode == "lanczos":
+            if restored is not None and restored.count() > 0:
+                basis = restored
+            else:
+                basis = self._lanczos(rank, lanczos_iters, v0, normal,
+                                      normal_batched)
+                if snap is not None:
+                    snap.save(basis.count(), basis)
+            state = deflate.DeflationState(basis, "lanczos", snapshot=snap)
+        else:
+            raw = restored if restored is not None else template
+            refine = deflate.make_ritz_refine(deflate.RECYCLE_QUALITY)
+            basis = refine(raw) if raw.count() > 0 else raw
+            lam = deflate.estimate_lambda_max(normal, v0)
+            state = deflate.DeflationState(
+                basis, "recycle",
+                update_fn=deflate.make_recycle_update(normal,
+                                                      lam_max=1.1 * lam),
+                refine_fn=refine, snapshot=snap, raw=raw)
+        self._deflation[key] = state
+        return state
+
+    def _lanczos(self, rank, iters, v0, normal, normal_batched):
+        from ..core import deflate
+        ops = self.ops
+        if ops.domain != "planar":
+            return deflate.lanczos_basis(normal, v0, rank, iters=iters,
+                                         op_batched=normal_batched)
+        basis = deflate.lanczos_basis(
+            lambda psi: ops.from_domain(normal(ops.to_domain(psi))),
+            ops.from_domain(v0), rank // 2, iters=iters,
+            op_batched=lambda psi: ops.from_domain_batched(
+                normal_batched(ops.to_domain_batched(psi))))
+        return deflate.planar_from_complex(basis, ops.to_domain_batched,
+                                           rank)
 
     @property
     def domain(self) -> str:

@@ -10,10 +10,13 @@ request.  A spec with ``inner_dtype`` builds a mixed-precision refined
 solve instead (:func:`repro_torch.core.solver.make_refined_solve`): the
 bound matrix is its inner backend, and its escalation ladder rebinds
 the session's backend at a higher dtype where the backend takes it,
-else drops to ``torch_ref``.  PyTorch runs eagerly, so there is no
-trace to cache; the ``traces`` counter counts pipeline builds under the
-reference's name.  The reference's fallback counters wait for the
-resilience slice.
+else drops to ``torch_ref``.  A spec with ``deflate_rank`` takes the
+matrix's deflation state (:meth:`WilsonMatrix.ensure_deflation`) and
+passes its basis to the pipeline as an argument; a recycle key harvests
+each converged column back into the basis.  PyTorch runs eagerly, so
+there is no trace to cache; the ``traces`` counter counts pipeline
+builds under the reference's name.  The reference's fallback counters
+wait for the resilience slice.
 """
 from __future__ import annotations
 
@@ -33,11 +36,12 @@ __all__ = ["SolveSession"]
 
 class _CacheEntry:
     __slots__ = ("fn", "kind", "times", "iterations", "col_iterations",
-                 "outer", "escalations")
+                 "outer", "escalations", "deflation")
 
-    def __init__(self, fn, kind: str = "plain"):
+    def __init__(self, fn, kind: str = "plain", deflation=None):
         self.fn = fn
         self.kind = kind          # "plain" or "refined"
+        self.deflation = deflation  # the DeflationState of a deflated key
         self.times = []           # per-solve wall seconds, in call order
         self.iterations = []      # Krylov iterations per solve (batched:
         #                           the most of any column)
@@ -85,13 +89,18 @@ class SolveSession:
         if entry is None:
             entry = self._build(spec, batched)
             self._counters["traces"] += 1
+        x = None
         if entry.kind == "refined":
             xi_e, xi_o, res = entry.fn(eta_e, eta_o)
         else:
             ops = self.matrix.ops
             enc = ops.to_domain_batched if batched else ops.to_domain
             dec = ops.from_domain_batched if batched else ops.from_domain
-            x, v_xi_o, res = entry.fn(enc(eta_e), enc(eta_o))
+            if entry.deflation is not None:
+                x, v_xi_o, res = entry.fn(enc(eta_e), enc(eta_o),
+                                          entry.deflation.basis)
+            else:
+                x, v_xi_o, res = entry.fn(enc(eta_e), enc(eta_o))
             xi_e = dec(x).to(eta_e.dtype)
             xi_o = dec(v_xi_o).to(eta_o.dtype)
         self._sync()
@@ -109,7 +118,28 @@ class SolveSession:
         else:
             entry.iterations.append(int(res.iterations))
         entry.times.append(time.perf_counter() - t0)
+        self._maybe_harvest(entry, x, res, batched)
         return xi_e, xi_o, res._replace(x=xi_e)
+
+    @staticmethod
+    def _maybe_harvest(entry, x_native, res, batched):
+        """Feed the converged solutions of a recycle key back into its
+        basis, column by column (``x`` solves ``A x = Dhat^dag rhs``, so
+        it is rich in ``A``'s low modes); the next solve passes the grown
+        basis."""
+        state = entry.deflation
+        if (state is None or state.mode != "recycle"
+                or state.count >= state.rank):
+            return
+        if not batched:
+            if res.converged:
+                state.harvest_column(x_native)
+            return
+        for j, conv in enumerate(res.converged.tolist()):
+            if conv:
+                state.harvest_column(x_native[j])
+                if state.count >= state.rank:
+                    break
 
     def _escalation_factory(self):
         """The refined solve's ``bops_factory``: the session's backend
@@ -150,12 +180,19 @@ class SolveSession:
                 inner_dtype=spec.inner_dtype, escalate=spec.escalate,
                 bops_factory=(self._escalation_factory()
                               if spec.escalate else None)), "refined")
+        deflation = None
+        if spec.deflate_rank > 0:
+            deflation = m.ensure_deflation(
+                spec.deflate_rank, spec.deflate_mode,
+                checkpoint=spec.deflate_checkpoint,
+                lanczos_iters=spec.deflate_iters)
         return _CacheEntry(_solver.make_native_solve(
             m.ops, m.kappa, method=spec.method, tol=spec.tol,
             max_iters=spec.max_iters, recompute_every=spec.recompute_every,
             batched=batched, guard=spec.guard,
             stagnation_window=spec.stagnation_window,
-            max_restarts=spec.max_restarts))
+            max_restarts=spec.max_restarts,
+            deflated=deflation is not None), "plain", deflation)
 
     def solve_block(self, eta_e, eta_o, spec: Optional[SolveSpec] = None,
                     *, bounds=None):
@@ -186,7 +223,8 @@ class SolveSession:
         (``kind: "plain"``) list ``iterations``, and batched ones
         ``col_iterations``, the per-column counts of each solve; refined
         keys (``kind: "refined"``) list ``outer_iterations`` and
-        ``escalations`` per solve."""
+        ``escalations`` per solve.  A deflated key has a ``deflation``
+        row: mode, rank, filled and active slots, harvests."""
         keys = {}
         for (spec, shape, dtype), entry in self._cache.items():
             steady = sorted(entry.times[1:])
@@ -207,6 +245,11 @@ class SolveSession:
                 if entry.col_iterations:
                     row["col_iterations"] = [
                         list(c) for c in entry.col_iterations]
+            if entry.deflation is not None:
+                d = entry.deflation
+                row["deflation"] = {"mode": d.mode, "rank": d.rank,
+                                    "filled": d.count, "active": d.active,
+                                    "harvested": d.harvested}
             keys[key] = row
         return {
             **self._counters,

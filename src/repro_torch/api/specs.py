@@ -6,10 +6,10 @@
   validated against the registry's capabilities; ``"auto"`` resolves by
   device (``cuda_fused`` on ``cuda``, ``torch_ref`` on ``cpu``);
 * :class:`SolveSpec` — the Krylov configuration, mixed-precision
-  refinement (``inner_dtype``) included.
+  refinement (``inner_dtype``) and low-mode deflation (``deflate_*``)
+  included.
 
-Solves take one source or a block of them (a leading ``nrhs`` axis);
-specs that ask for deflation raise ``NotImplementedError``.
+Solves take one source or a block of them (a leading ``nrhs`` axis).
 """
 from __future__ import annotations
 
@@ -194,11 +194,22 @@ class SolveSpec:
     inner solves to ``inner_tol`` at that dtype on the bound backend
     (bind it at the inner dtype), an f64 outer loop to ``tol`` of at
     most ``max_outer`` passes, climbing ``ESCALATION_LADDER`` when a
-    pass stalls if ``escalate``.  ``deflate_rank`` above 0 is not
-    ported yet.
+    pass stalls if ``escalate``.
+
+    ``deflate_rank > 0`` deflates the low modes of the normal operator
+    for the methods of :data:`repro_torch.core.solver.DEFLATABLE_METHODS`
+    (not with ``inner_dtype``); the basis is built once per bound gauge
+    and cached on the :class:`~repro_torch.api.WilsonMatrix`.
+    ``deflate_mode`` ``"lanczos"`` pays an up-front eigensolve of
+    ``deflate_iters`` steps (``None``: automatic); ``"recycle"`` starts
+    empty and harvests converged solutions, so that iterations drop
+    along a stream of solves.  ``deflate_checkpoint`` names a directory
+    where the basis is saved and restored from
+    (:class:`repro_torch.resilience.BasisSnapshot`).
     """
 
     METHODS = _solver.KRYLOV_METHODS
+    DEFLATE_MODES = ("lanczos", "recycle")
 
     method: str = "cgnr"
     tol: float = 1e-6
@@ -213,6 +224,9 @@ class SolveSpec:
     max_restarts: int = _solver.MAX_RESTARTS
     escalate: bool = True
     deflate_rank: int = 0
+    deflate_mode: str = "lanczos"
+    deflate_iters: Optional[int] = None
+    deflate_checkpoint: Optional[str] = None
 
     def __post_init__(self):
         if self.method not in self.METHODS:
@@ -246,9 +260,29 @@ class SolveSpec:
         if self.max_outer < 1:
             raise ValueError(
                 f"max_outer must be >= 1; got {self.max_outer}")
-        if self.deflate_rank:
-            raise NotImplementedError(
-                "deflate_rank: deflation is not ported yet")
+        if self.deflate_rank < 0:
+            raise ValueError(
+                f"deflate_rank must be >= 0 (0 = no deflation); got "
+                f"{self.deflate_rank}")
+        if self.deflate_mode not in self.DEFLATE_MODES:
+            raise ValueError(
+                f"unknown deflate_mode {self.deflate_mode!r}; choose "
+                f"from {self.DEFLATE_MODES}")
+        if self.deflate_iters is not None and self.deflate_iters < 1:
+            raise ValueError(
+                f"deflate_iters must be >= 1 (None = auto); got "
+                f"{self.deflate_iters}")
+        if self.deflate_rank > 0:
+            if self.method not in _solver.DEFLATABLE_METHODS:
+                raise ValueError(
+                    f"deflation applies to the normal-equations methods "
+                    f"{_solver.DEFLATABLE_METHODS}, not {self.method!r}")
+            if self.inner_dtype is not None:
+                raise ValueError(
+                    "deflation and mixed-precision refinement "
+                    "(inner_dtype) are not combinable: the basis lives on "
+                    "the native normal operator, which the refined solve "
+                    "rebuilds per escalation rung")
 
     def validate_rhs(self, eta_e, eta_o, lattice: LatticeSpec) -> bool:
         """Check a source pair against the lattice and ``nrhs``; returns
@@ -290,4 +324,8 @@ class SolveSpec:
                 parts.append(f"sw{self.stagnation_window}")
             if self.max_restarts != _solver.MAX_RESTARTS:
                 parts.append(f"mr{self.max_restarts}")
+        if self.deflate_rank:
+            parts.append(f"defl{self.deflate_rank}-{self.deflate_mode}")
+            if self.deflate_iters is not None:
+                parts.append(f"li{self.deflate_iters}")
         return ":".join(parts)

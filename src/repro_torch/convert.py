@@ -15,7 +15,7 @@ from . import resolve_device
 
 __all__ = ["gauge_from_reference", "planar_gauge_from_reference",
            "spinor_from_reference", "planar_spinor_from_reference",
-           "to_numpy"]
+           "basis_from_reference", "to_numpy"]
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -49,6 +49,15 @@ def spinor_from_reference(psi, device=None) -> torch.Tensor:
 def planar_spinor_from_reference(p, device=None) -> torch.Tensor:
     """Planar spinor ``(..., T, Z, 24, Y, Xh)``."""
     return _tensor(p, device)
+
+
+def basis_from_reference(basis, device=None):
+    """A reference ``DeflationBasis`` (or any sequence of its four arrays
+    ``vectors, avectors, gram, mask``) as the port's
+    :class:`repro_torch.core.deflate.DeflationBasis`, so that both
+    packages deflate against one subspace."""
+    from .core.deflate import DeflationBasis
+    return DeflationBasis(*[_tensor(a, device) for a in basis])
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

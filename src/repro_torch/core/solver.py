@@ -32,6 +32,12 @@ scalars accumulate in f32 (``COMPENSATED_REDUCTIONS``).
 :func:`make_refined_solve` is the reference's mixed-precision iterative
 refinement: inner solves at a cheap dtype, an outer loop on the f64
 true residual, and a ladder of dtypes to climb when it stalls.
+
+:func:`blockcg_batched` (``method="blockcg"``) shares one Krylov space
+over a block of sources (BCGrQ).  The CG solvers take a ``project``
+hook, and :func:`_run_krylov` a ``deflation`` basis
+(:mod:`repro_torch.core.deflate`): a Galerkin initial guess plus the
+A-orthogonal projector on every new search direction.
 """
 from __future__ import annotations
 
@@ -42,19 +48,30 @@ import torch
 
 __all__ = ["SolveResult", "RefinedResult", "cg", "cgnr", "bicgstab",
            "cg_batched", "cgnr_batched", "bicgstab_batched",
-           "split_columns", "KRYLOV_METHODS", "make_native_solve",
-           "make_refined_solve", "resolve_inner_dtype",
-           "ESCALATION_LADDER", "COMPENSATED_REDUCTIONS",
-           "STAGNATION_WINDOW", "MAX_RESTARTS"]
+           "blockcg_batched", "split_columns", "KRYLOV_METHODS",
+           "DEFLATABLE_METHODS", "make_native_solve", "make_refined_solve",
+           "resolve_inner_dtype", "ESCALATION_LADDER",
+           "COMPENSATED_REDUCTIONS", "STAGNATION_WINDOW", "MAX_RESTARTS",
+           "BLOCKCG_RECOMPUTE_DEFAULT"]
 
 # A residual that makes no new minimum for a full window is stagnating;
 # it gets this many deterministic restarts before the solve stops.
 STAGNATION_WINDOW = 50
 MAX_RESTARTS = 1
 
+# Block CG replaces its recursive residual with the true one at this
+# cadence when the caller leaves recompute_every at 0: its orthonormalized
+# recursion drifts, and its convergence test needs the correction.
+BLOCKCG_RECOMPUTE_DEFAULT = 50
+
 # Krylov methods valid on the (non-Hermitian) even-odd Schur system:
-# "cg" is plain CG on the normal equations (the system "cgnr" solves).
-KRYLOV_METHODS = ("cg", "cgnr", "bicgstab")
+# "cg" is plain CG on the normal equations (the system "cgnr" solves),
+# "blockcg" its block form over a source block (plain cg for one source).
+KRYLOV_METHODS = ("cg", "cgnr", "bicgstab", "blockcg")
+
+# The methods that iterate the Hermitian positive-definite normal
+# operator Dhat^dag Dhat, which a deflation basis is built for.
+DEFLATABLE_METHODS = ("cg", "cgnr", "blockcg")
 
 
 class SolveResult(NamedTuple):
@@ -201,6 +218,38 @@ def _bresult(x, iters, rel, conv, div) -> SolveResult:
     return SolveResult(x, iters.cpu(), rel, conv.cpu() & ~div, div)
 
 
+def _swhere(flag: torch.Tensor, new, old):
+    """Whole-solve freeze-select: ``new`` where the 0-d ``flag`` else
+    ``old``, leaf by leaf for a tuple of tensors."""
+    if isinstance(new, tuple):
+        return type(new)(*[torch.where(flag, n, o) for n, o in zip(new, old)])
+    return torch.where(flag, new, old)
+
+
+def _bgram(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Block Gram matrix ``G[i, j] = <a_i, b_j>`` over the leading RHS
+    axis, on the device (f32-accumulated for vectors below f32)."""
+    a, b = _acc(a), _acc(b)
+    return a.reshape(a.shape[0], -1).conj() @ b.reshape(b.shape[0], -1).T
+
+
+def _bcomb(coef: torch.Tensor, x: torch.Tensor,
+           y: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Block column mixing ``y_j + sum_i coef[i, j] * x_i``, ``coef``
+    cast down to the vector's dtype (:func:`_apply_scalar`)."""
+    upd = torch.tensordot(_apply_scalar(coef, x), x, dims=([0], [0]))
+    return upd if y is None else upd + y
+
+
+def _nan_unless(ok: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``out`` where the 0-d LAPACK ``info`` is 0, else NaN: the value
+    JAX's Cholesky, inverse and solve give a matrix they cannot factor,
+    which the guards downstream are written to see (PyTorch raises
+    instead, or, with the ``_ex`` functions, returns a partial
+    factorization)."""
+    return torch.where(ok == 0, out, torch.full_like(out, float("nan")))
+
+
 def _any(*masks: torch.Tensor):
     """``any`` of each mask, read back to the host in one transfer."""
     return torch.stack([m.any() for m in masks]).tolist()
@@ -234,11 +283,17 @@ def split_columns(res: SolveResult, bounds):
 def cg(op: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None, *,
        tol: float = 1e-6, max_iters: int = 1000, recompute_every: int = 0,
        guard: bool = True, stagnation_window: int = STAGNATION_WINDOW,
-       max_restarts: int = MAX_RESTARTS) -> SolveResult:
-    """Conjugate gradients for a Hermitian positive-definite ``op``."""
+       max_restarts: int = MAX_RESTARTS,
+       project: Optional[Callable] = None) -> SolveResult:
+    """Conjugate gradients for a Hermitian positive-definite ``op``.
+
+    ``project`` (deflated CG; :func:`repro_torch.core.deflate.
+    make_projector`) is applied to the residual wherever a search
+    direction is built; ``None`` keeps the recurrence bit for bit."""
+    proj = project if project is not None else torch.clone
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - op(x) if x0 is not None else b.clone()
-    p = r.clone()
+    p = proj(r)
     rr = _norm2(r)
     b2 = _norm2(b)
     tiny = _tiny(b)
@@ -260,7 +315,7 @@ def cg(op: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None, *,
             r1 = b - op(x1)
         rr1 = _norm2(r1)
         beta = rr1 / rr
-        p1 = r1 + beta * p
+        p1 = (r1 if project is None else project(r1)) + beta * p
         if guard:
             finite = math.isfinite(rr1)
             if not finite:      # keep the last finite iterate
@@ -278,7 +333,7 @@ def cg(op: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None, *,
             if restart:
                 r1 = b - op(x1)
                 rr1 = _norm2(r1)
-                p1 = r1.clone()
+                p1 = proj(r1)
                 best, since = rr1, 0
                 restarts += 1
             div = div or (stag and not restart)
@@ -307,14 +362,15 @@ def _true_system_result(res: SolveResult, op: Callable, b: torch.Tensor,
 def cgnr(op: Callable, op_dag: Callable, b: torch.Tensor, x0=None, *,
          tol: float = 1e-6, max_iters: int = 1000, recompute_every: int = 0,
          guard: bool = True, stagnation_window: int = STAGNATION_WINDOW,
-         max_restarts: int = MAX_RESTARTS) -> SolveResult:
+         max_restarts: int = MAX_RESTARTS,
+         project: Optional[Callable] = None) -> SolveResult:
     """CG on the normal equations ``op^dag op x = op^dag b``; iterates to
     ``tol`` in the normal-equation metric and reports the true-system
     relative residual."""
     res = cg(lambda v: op_dag(op(v)), op_dag(b), x0, tol=tol,
              max_iters=max_iters, recompute_every=recompute_every,
              guard=guard, stagnation_window=stagnation_window,
-             max_restarts=max_restarts)
+             max_restarts=max_restarts, project=project)
     return _true_system_result(res, op, b, tol)
 
 
@@ -394,7 +450,8 @@ def cg_batched(op: Callable, b: torch.Tensor, x0=None, *,
                tol: float = 1e-6, max_iters: int = 1000,
                recompute_every: int = 0, guard: bool = True,
                stagnation_window: int = STAGNATION_WINDOW,
-               max_restarts: int = MAX_RESTARTS) -> SolveResult:
+               max_restarts: int = MAX_RESTARTS,
+               project: Optional[Callable] = None) -> SolveResult:
     """Batched CG: one application of ``op`` per iteration for the whole
     block ``b`` (leading RHS axis), per-column scalars and freezing.
 
@@ -404,11 +461,13 @@ def cg_batched(op: Callable, b: torch.Tensor, x0=None, *,
     way and reports through the per-column ``diverged``; the others are
     untouched, since every scalar is per column and ``op`` acts column by
     column.  A non-finite source column never iterates and ends as
-    ``diverged``.
+    ``diverged``.  ``project`` is the batched deflation projector,
+    applied as in :func:`cg`.
     """
+    proj = project if project is not None else torch.clone
     x = torch.zeros_like(b) if x0 is None else x0
     r = b.clone() if x0 is None else b - op(x)
-    p = r.clone()
+    p = proj(r)
     rr = _bnorm2(r)
     b2 = _bnorm2(b)
     tiny = _tiny(b)
@@ -436,7 +495,7 @@ def cg_batched(op: Callable, b: torch.Tensor, x0=None, *,
             r1 = b - op(x1)
         rr1 = _bnorm2(r1)
         beta = af * rr1 / _nz(rr, tiny)
-        p1 = _baxpy(beta, p, r1)
+        p1 = _baxpy(beta, p, r1 if project is None else project(r1))
         restart = None
         if guard:
             # Only active columns whose new residual stayed finite
@@ -472,7 +531,8 @@ def cg_batched(op: Callable, b: torch.Tensor, x0=None, *,
                 rt = b - op(x1)
                 rt2 = _bnorm2(rt)
                 r1 = _bwhere(restart, rt, r1)
-                p1 = _bwhere(restart, rt, p1)
+                p1 = _bwhere(restart, rt if project is None else project(rt),
+                             p1)
                 rr1 = torch.where(restart, rt2, rr1)
                 best = torch.where(restart, rr1, best)
                 since = torch.where(restart, 0, since)
@@ -493,12 +553,13 @@ def cgnr_batched(op: Callable, op_dag: Callable, b: torch.Tensor, x0=None,
                  *, tol: float = 1e-6, max_iters: int = 1000,
                  recompute_every: int = 0, guard: bool = True,
                  stagnation_window: int = STAGNATION_WINDOW,
-                 max_restarts: int = MAX_RESTARTS) -> SolveResult:
+                 max_restarts: int = MAX_RESTARTS,
+                 project: Optional[Callable] = None) -> SolveResult:
     """Batched CGNR; per-column true-system residuals."""
     res = cg_batched(lambda v: op_dag(op(v)), op_dag(b), x0, tol=tol,
                      max_iters=max_iters, recompute_every=recompute_every,
                      guard=guard, stagnation_window=stagnation_window,
-                     max_restarts=max_restarts)
+                     max_restarts=max_restarts, project=project)
     return _true_system_result(res, op, b, tol, batched=True)
 
 
@@ -621,18 +682,205 @@ def bicgstab_batched(op: Callable, b: torch.Tensor, x0=None, *,
     return _bresult(x, iters, rel, rel <= tol, div)
 
 
+def blockcg_batched(op: Callable, b: torch.Tensor, x0=None, *,
+                    tol: float = 1e-6, max_iters: int = 1000,
+                    recompute_every: int = 0, guard: bool = True,
+                    stagnation_window: int = STAGNATION_WINDOW,
+                    max_restarts: int = MAX_RESTARTS,
+                    project: Optional[Callable] = None) -> SolveResult:
+    """Block CG: one Krylov space shared by the whole block ``b``.
+
+    The reference's residual-orthonormalized variant (BCGrQ): the
+    residual block is kept as ``R = Q S``, ``Q`` orthonormalized every
+    iteration by a Cholesky QR of the small Gram matrix, ``S`` the
+    accumulated upper-triangular factor; each iteration solves small
+    nrhs x nrhs systems (on the device) and mixes every search direction
+    into every column.  The small Gram and curvature matrices carry a
+    relative ~eps identity ridge, so that duplicate or dependent source
+    columns stay solvable; a factorization that fails anyway comes out
+    NaN, as in the reference, and the guards see it.
+
+    A column that leaves the active set has its ``S`` column zeroed and
+    its ``x`` frozen bit for bit.  The guard mirrors :func:`cg_batched`
+    (a non-finite source column is parked on zeros and ends
+    ``diverged``; a poisoned ``A p`` column is parked on zeros before
+    the mixing step), except that a stagnation restart rebuilds the
+    whole block.  ``recompute_every`` (0: ``BLOCKCG_RECOMPUTE_DEFAULT``)
+    replaces the block by the true residual with a fresh QR; that
+    iteration never counts toward a restart.  One host read per
+    iteration (a second only where a column restarts).  The residual
+    reported is the true ``|b - op(x)| / |b|`` at exit, with the 10x
+    slack on ``converged``.
+    """
+    recompute_every = recompute_every or BLOCKCG_RECOMPUTE_DEFAULT
+    proj = project if project is not None else (lambda v: v)
+    zero_v = torch.zeros_like(b)
+    x = zero_v if x0 is None else x0
+    r = b if x0 is None else b - op(x)
+    rr0 = _bnorm2(r)
+    b2 = _bnorm2(b)
+    tiny = _tiny(b)
+    tol2 = (tol * tol) * b2
+    n = rr0.shape[0]
+    gdtype = _acc(b[:1]).dtype
+    eye = torch.eye(n, dtype=gdtype, device=b.device)
+    eps = torch.finfo(rr0.dtype).eps
+    finite0 = torch.isfinite(rr0)
+    div = ~finite0 if guard else torch.zeros_like(finite0)
+    active = (rr0 > tol2) & finite0
+    if guard:
+        # The QR and Gram mixing couple the columns: park a non-finite
+        # source column on zeros, where it never becomes active.
+        r = _bwhere(finite0, r, zero_v)
+        x = _bwhere(finite0, x, zero_v)
+
+    def ridged(g):
+        """The Hermitian part of ``g`` plus the relative eps identity
+        ridge."""
+        g = 0.5 * (g + g.mH)
+        lam = (eps * n) * g.diagonal().abs().max().clamp_min(tiny)
+        return g + lam.to(gdtype) * eye
+
+    def chol_qr(rt):
+        """``rt = Q C``: ``Q`` orthonormal rows, ``C`` upper triangular."""
+        low, info = torch.linalg.cholesky_ex(ridged(_bgram(rt, rt)))
+        low = _nan_unless(info, low)
+        inv_cl, info = torch.linalg.inv_ex(low.conj())
+        inv_cl = _nan_unless(info, inv_cl)
+        q = torch.tensordot(_apply_scalar(inv_cl, rt), rt, dims=([1], [0]))
+        return q, low.mH
+
+    def snorm2(s):
+        """Per-column ``|R|^2`` from the ``S`` factor (``Q`` is
+        orthonormal)."""
+        return (s.abs() ** 2).sum(dim=0).to(rr0.dtype)
+
+    qm, c0 = chol_qr(r)
+    s = torch.where(active[None, :], c0, torch.zeros_like(c0))
+    p = proj(qm)
+    rr = snorm2(s)
+    zeros = torch.zeros(n, dtype=torch.int64, device=b.device)
+    iters, since, restarts = zeros, zeros, zeros
+    best = rr
+    live = active & torch.isfinite(rr) if guard else active
+    k = 0
+    (go,) = _any(live)
+    while go and k < max_iters:
+        ap = op(p)
+        if guard:
+            # A direction the operator poisoned must not reach the
+            # mixing step (0 * NaN = NaN would spread it).
+            ap = _bwhere(torch.isfinite(_bnorm2(ap)), ap, zero_v)
+        alpha, info = torch.linalg.inv_ex(ridged(_bgram(p, ap)))
+        alpha = _nan_unless(info, alpha)
+        if project is not None:
+            # Projected directions break P^H Q = I: the exact step is
+            # (P^H A P)^-1 (P^H Q).
+            alpha = alpha @ _bgram(p, qm)
+        x1 = _bcomb(alpha @ s, p, x)
+        qm1, c1 = chol_qr(_bcomb(-alpha, ap, qm))
+        s1 = c1 @ s
+        p1 = _bcomb(c1.mH, p, proj(qm1))
+        rr1 = snorm2(s1)
+        # The true-residual replacement's iteration is known on the
+        # host; a stagnation restart is read back with the loop flags.
+        recomp = (k + 1) % recompute_every == 0
+        restart = None
+        if guard:
+            finite = torch.isfinite(rr1)
+            accept = active & finite
+            x1 = _bwhere(accept, x1, x)
+            rr1 = torch.where(accept, rr1, rr)
+            div = div | (active & ~finite)
+            improved = rr1 < best
+            best = torch.where(accept, torch.minimum(best, rr1), best)
+            since = torch.where(accept, torch.where(improved, 0, since + 1),
+                                since)
+            if not recomp:
+                stag = accept & (since >= stagnation_window)
+                restart = stag & (restarts < max_restarts)
+                restarts = restarts + restart.to(restarts.dtype)
+                div = div | (stag & ~restart)
+            active_new = active & ~div & (rr1 > tol2)
+        else:
+            active_new = active & (rr1 > tol2)
+        # A column out of the active set gets a zero S column: the
+        # shared recursion can never move its x again.
+        s1 = torch.where(active_new[None, :], s1, torch.zeros_like(s1))
+
+        def replace(rr1, best, since):
+            """The whole block rebuilt from the true residual of ``x1``
+            with a fresh QR; the window re-baselined on it."""
+            rt = b - op(x1)
+            if guard:
+                rt = _bwhere(torch.isfinite(_bnorm2(rt)), rt, zero_v)
+            qm2, c2 = chol_qr(rt)
+            s2 = torch.where(active_new[None, :], c2, torch.zeros_like(c2))
+            rr1 = torch.where(active_new, snorm2(s2), rr1)
+            if guard:
+                best = torch.where(active_new, rr1, best)
+                since = torch.where(active_new, 0, since)
+            return s2, qm2, proj(qm2), rr1, best, since
+
+        if recomp:
+            s1, qm1, p1, rr1, best, since = replace(rr1, best, since)
+        live = active_new & torch.isfinite(rr1) if guard else active_new
+        if restart is None:
+            (go,) = _any(live)
+        else:
+            go, any_restart = _any(live, restart)
+            if any_restart:
+                s1, qm1, p1, rr1, best, since = replace(rr1, best, since)
+                live = active_new & torch.isfinite(rr1)
+                (go,) = _any(live)
+        leaving = active & ~active_new
+        iters = torch.where(leaving, k + 1, iters)
+        x, qm, p, s, rr, active = x1, qm1, p1, s1, rr1, active_new
+        k += 1
+    iters = torch.where(active, k, iters)
+    # The recursive S product drifts below the true residual: report the
+    # true one (one more apply), with the 10x slack on converged.
+    rt = b - op(x)
+    rel = torch.sqrt(_bnorm2(rt) / b2.clamp_min(1e-30)).cpu()
+    return _bresult(x, iters, rel, rel <= tol * 10, div)
+
+
 def _run_krylov(method: str, dhat: Callable, dhat_dag: Callable,
                 rhs: torch.Tensor, *, batched: bool = False,
-                **kw) -> SolveResult:
+                deflation=None, **kw) -> SolveResult:
     """Dispatch one native-domain Krylov solve of ``Dhat x = rhs``
-    (per column of a leading RHS axis when ``batched``)."""
-    if method == "cg":
-        fn = cg_batched if batched else cg
-        res = fn(lambda v: dhat_dag(dhat(v)), dhat_dag(rhs), **kw)
+    (per column of a leading RHS axis when ``batched``).
+
+    ``deflation`` (a :class:`repro_torch.core.deflate.DeflationBasis`)
+    deflates the normal-equations methods: the Galerkin guess
+    ``W (W^H A W)^-1 W^H Dhat^dag rhs`` starts the solve and the
+    A-orthogonal projector builds every search direction."""
+    if deflation is not None:
+        if method not in DEFLATABLE_METHODS:
+            raise ValueError(
+                f"deflation applies to the normal-equations methods "
+                f"{DEFLATABLE_METHODS}, not {method!r}")
+        from . import deflate
+        kw["project"] = deflate.make_projector(deflation, batched=batched)
+
+    def guess(bn):
+        if deflation is None:
+            return None
+        return deflate.galerkin_guess(deflation, bn, batched=batched)
+
+    if method in ("cg", "blockcg"):
+        if batched:
+            fn = blockcg_batched if method == "blockcg" else cg_batched
+        else:
+            # One source has no block to share a Krylov space with.
+            fn = cg
+        bn = dhat_dag(rhs)
+        res = fn(lambda v: dhat_dag(dhat(v)), bn, guess(bn), **kw)
         return _true_system_result(res, dhat, rhs, kw["tol"], batched)
     if method == "cgnr":
         fn = cgnr_batched if batched else cgnr
-        return fn(dhat, dhat_dag, rhs, **kw)
+        x0 = guess(dhat_dag(rhs)) if deflation is not None else None
+        return fn(dhat, dhat_dag, rhs, x0, **kw)
     if method == "bicgstab":
         fn = bicgstab_batched if batched else bicgstab
         return fn(dhat, rhs, **kw)
@@ -645,13 +893,16 @@ def make_native_solve(bops, kappa: float, *, method: str = "cgnr",
                       recompute_every: int = 0, batched: bool = False,
                       guard: bool = True,
                       stagnation_window: int = STAGNATION_WINDOW,
-                      max_restarts: int = MAX_RESTARTS):
+                      max_restarts: int = MAX_RESTARTS,
+                      deflated: bool = False):
     """The native-domain Schur-solve pipeline of a bound operator.
 
     Returns ``fn(v_e, v_o) -> (x, v_xi_o, SolveResult)`` on native
     vectors of ``bops`` (with a leading RHS axis and the ``*_batched``
     operators when ``batched``): the Eq. (4) right-hand side, the Krylov
-    solve and the Eq. (5) odd reconstruction.
+    solve and the Eq. (5) odd reconstruction.  ``deflated`` returns
+    ``fn(v_e, v_o, basis)`` instead: the deflation basis is an argument,
+    so a recycle basis that grows between solves needs no rebuild.
     """
     if batched:
         hop_eo, hop_oe = bops.hop_eo_native_batched, bops.hop_oe_native_batched
@@ -662,19 +913,22 @@ def make_native_solve(bops, kappa: float, *, method: str = "cgnr",
         dhat = bops.apply_dhat_native
         dhat_dag = bops.apply_dhat_dagger_native
 
-    def solve_native(v_e, v_o):
+    def solve_native(v_e, v_o, deflation=None):
         # RHS of Eq. (4): eta_e + kappa * H_eo eta_o  (D_eo = -kappa H_eo).
         rhs = v_e + kappa * hop_eo(v_o)
         res = _run_krylov(
             method, lambda v: dhat(v, kappa), lambda v: dhat_dag(v, kappa),
-            rhs, batched=batched, tol=tol, max_iters=max_iters,
-            recompute_every=recompute_every, guard=guard,
-            stagnation_window=stagnation_window, max_restarts=max_restarts)
+            rhs, batched=batched, deflation=deflation, tol=tol,
+            max_iters=max_iters, recompute_every=recompute_every,
+            guard=guard, stagnation_window=stagnation_window,
+            max_restarts=max_restarts)
         # Eq. (5): xi_o = eta_o + kappa * H_oe xi_e.
         v_xi_o = v_o + kappa * hop_oe(res.x)
         return res.x, v_xi_o, res
 
-    return solve_native
+    if deflated:
+        return solve_native
+    return lambda v_e, v_o: solve_native(v_e, v_o)
 
 
 # --- mixed-precision iterative refinement --------------------------------
@@ -723,7 +977,8 @@ def make_refined_solve(bops, U64_e, U64_o, kappa: float, *,
                        stagnation_window: int = STAGNATION_WINDOW,
                        max_restarts: int = MAX_RESTARTS,
                        inner_dtype="f32", escalate: bool = True,
-                       bops_factory: Optional[Callable] = None):
+                       bops_factory: Optional[Callable] = None,
+                       snapshot=None):
     """A mixed-precision iterative-refinement solve, built once.
 
     ``bops`` is the inner backend, bound at the cheap inner dtype;
@@ -747,6 +1002,10 @@ def make_refined_solve(bops, U64_e, U64_o, kappa: float, *,
     factory raises is skipped); each rung climbed is recorded.  At the
     ``"f64"`` rung the correction residual goes to the inner solve at
     complex128.
+
+    ``snapshot`` (a :class:`repro_torch.resilience.RefinementSnapshot`)
+    makes the outer loop resumable: the f64 iterate is saved after every
+    correction, and a later call resumes from the newest snapshot.
     """
     from . import evenodd
 
@@ -783,6 +1042,9 @@ def make_refined_solve(bops, U64_e, U64_o, kappa: float, *,
         f64_applies = 1                      # the hop above
         b2 = _bnorm2(rhs64) if batched else _norm2(rhs64)
         x64 = torch.zeros_like(rhs64)
+        start_outer = 0
+        if snapshot is not None:
+            x64, start_outer, _ = snapshot.resume(x64)
         iters_acc = (torch.zeros(rhs64.shape[0], dtype=torch.int64)
                      if batched else 0)
         inner_iters = 0
@@ -791,9 +1053,9 @@ def make_refined_solve(bops, U64_e, U64_o, kappa: float, *,
         escalations = []
         inner_div = None
         best_worst = None
-        outer = 0
+        outer = start_outer
         rel = None
-        for outer in range(1, max_outer + 1):
+        for outer in range(start_outer + 1, max_outer + 1):
             r64 = rhs64 - dhat64(x64)
             f64_applies += 1
             rel = rel_of(r64, b2)
@@ -840,6 +1102,8 @@ def make_refined_solve(bops, U64_e, U64_o, kappa: float, *,
             else:
                 iters_acc += int(res.iterations)
                 inner_iters += int(res.iterations)
+            if snapshot is not None:
+                snapshot.save(outer, x64)
         else:
             # Outer budget spent: report the residual of the final
             # iterate, not the one from before the last correction.

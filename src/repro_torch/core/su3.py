@@ -14,7 +14,7 @@ import torch
 
 from .lattice import NDIM
 
-__all__ = ["random_su3", "random_gauge", "unitarity_defect"]
+__all__ = ["random_su3", "random_gauge", "weak_gauge", "unitarity_defect"]
 
 
 def random_su3(generator: torch.Generator, shape: Sequence[int],
@@ -46,6 +46,34 @@ def random_gauge(generator: torch.Generator, lat_shape: Sequence[int],
     """Random gauge field ``(4, T, Z, Y, X, 3, 3)``."""
     return random_su3(generator, (NDIM, *lat_shape), dtype=dtype,
                       device=device)
+
+
+def weak_gauge(generator: torch.Generator, lat_shape: Sequence[int],
+               eps: float = 0.2, dtype=torch.complex64,
+               device=None) -> torch.Tensor:
+    """Weak-field gauge ``(4, T, Z, Y, X, 3, 3)``: ``U = exp(i eps H)``
+    with ``H`` Hermitian and traceless, drawn from ``generator``; exactly
+    SU(3) up to rounding, a small fluctuation around the free field.
+
+    The deflation test bed: a smooth field keeps the free operator's
+    momentum modes, so the low end of ``Dhat^dag Dhat`` is a few
+    isolated, degenerate clusters (12-fold at p = 0 in the complex
+    domain: 4 spins x 3 colours) that a small basis removes, where a
+    Haar-random field smears it into a quasi-continuum.  The exponential
+    is taken in complex128 and rounded to ``dtype`` once.
+    """
+    real = torch.float64 if dtype == torch.complex128 else torch.float32
+    size = (NDIM, *lat_shape, 3, 3)
+    gdev = generator.device
+    a = torch.complex(
+        torch.randn(size, generator=generator, device=gdev, dtype=real),
+        torch.randn(size, generator=generator, device=gdev, dtype=real)
+    ).to(torch.complex128)
+    h = 0.5 * (a + a.mH)
+    tr = h.diagonal(dim1=-2, dim2=-1).sum(-1) / 3.0
+    h = h - tr[..., None, None] * torch.eye(3, dtype=h.dtype, device=gdev)
+    u = torch.linalg.matrix_exp(1j * eps * h).to(dtype)
+    return u.to(gdev if device is None else device)
 
 
 def unitarity_defect(U: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,10 @@
         --backend cuda_fused_stream                     # one propagator
     PYTHONPATH=src python -m repro_torch.launch.solve --tol 1e-10 \
         --inner-dtype bf16 --inner-tol 1e-3             # refined, f64 tol
+    PYTHONPATH=src python -m repro_torch.launch.solve --nrhs 12 \
+        --method blockcg                                # block CG
+    PYTHONPATH=src python -m repro_torch.launch.solve --n-solves 3 \
+        --deflate-rank 24 --deflate-iters 200           # Lanczos deflation
 
 The arguments become one ``(LatticeSpec, BackendSpec, SolveSpec)``; the
 random gauge field is bound once into a :class:`repro_torch.api.
@@ -22,6 +26,12 @@ the backend is bound at that dtype for the inner solves, the sources
 are complex128, an f64 outer loop drives the residual to ``--tol``, and
 each ``solve i:`` line adds the outer passes, f64 operator applications
 and escalations; the full-lattice check runs in complex128.
+``--deflate-rank N`` deflates N low modes of the normal operator
+(``--deflate-mode lanczos`` builds them once per gauge, ``recycle``
+harvests them from the solves); the ``session[...]`` line then shows the
+basis as ``deflation=mode:filled/rank active=N``.  ``--ckpt-dir DIR``
+saves each solve's ``(xi_e, xi_o)`` there
+(:class:`repro_torch.checkpoint.Checkpointer`).
 ``--backend auto`` is ``cuda_fused`` on ``cuda`` and ``torch_ref`` on
 ``cpu``; ``--backend help`` lists the registry and exits.
 """
@@ -33,7 +43,8 @@ import time
 import torch
 
 from .. import api, backends, configs, resolve_device
-from ..core import evenodd, su3, wilson
+from ..checkpoint import Checkpointer
+from ..core import evenodd, solver, su3, wilson
 from ..kernels import wilson_stencil
 
 
@@ -84,6 +95,26 @@ def main(argv=None):
     ap.add_argument("--inner-tol", type=float, default=1e-4,
                     help="tolerance of each inner solve of a refined "
                          "solve")
+    ap.add_argument("--recompute-every", type=int, default=0,
+                    help="replace the recursive residual by the true one "
+                         "every N Krylov iterations (0 = never; blockcg "
+                         "then takes its default of "
+                         f"{solver.BLOCKCG_RECOMPUTE_DEFAULT})")
+    ap.add_argument("--deflate-rank", type=int, default=0,
+                    help="low-mode deflation rank (0 = off): project the "
+                         "normal operator's low modes out of every solve "
+                         "of this gauge (methods: "
+                         + ", ".join(solver.DEFLATABLE_METHODS) + ")")
+    ap.add_argument("--deflate-mode", default="lanczos",
+                    choices=list(api.SolveSpec.DEFLATE_MODES),
+                    help="'lanczos' builds the basis once per gauge; "
+                         "'recycle' starts empty and harvests converged "
+                         "solutions")
+    ap.add_argument("--deflate-iters", type=int, default=0,
+                    help="Lanczos steps (0 = auto)")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="save each solve's (xi_e, xi_o) in this "
+                         "directory")
     ap.add_argument("--n-solves", type=int, default=1)
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--device", default="cuda",
@@ -110,9 +141,13 @@ def main(argv=None):
         ap.error(f"--nrhs must be >= 1; got {args.nrhs}")
     nrhs = args.nrhs
     sspec = api.SolveSpec(method=args.method, tol=args.tol,
+                          recompute_every=args.recompute_every,
                           nrhs=nrhs if nrhs > 1 else None,
                           inner_dtype=inner_dtype,
-                          inner_tol=args.inner_tol)
+                          inner_tol=args.inner_tol,
+                          deflate_rank=args.deflate_rank,
+                          deflate_mode=args.deflate_mode,
+                          deflate_iters=args.deflate_iters or None)
     T, Z, Y, X = lattice.extents
     print(f"lattice {lattice.extents}, kappa={args.kappa}, nrhs={nrhs}, "
           f"device={device}"
@@ -132,6 +167,7 @@ def main(argv=None):
     # solutions and the full-lattice check are complex128.
     cdtype = torch.complex128 if inner_dtype else torch.complex64
     U_check = U.to(cdtype)
+    ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
     launches0 = dict(wilson_stencil.LAUNCHES)
     eta_gen = torch.Generator().manual_seed(args.seed + 100)
     iterations, residuals, solutions, results = [], [], [], []
@@ -180,6 +216,8 @@ def main(argv=None):
         col_residuals.append(rels)
         solutions.append(xi if nrhs > 1 else xi[0])
         results.append(res)
+        if ckpt is not None:
+            ckpt.save(i, (xe, xo), extras={"rel": max(rels)})
 
     st = session.stats()
     for keystr, row in st["keys"].items():
@@ -192,6 +230,10 @@ def main(argv=None):
             counts = f"iters={row['iterations']}" + (
                 f" col_iters={row['col_iterations']}"
                 if "col_iterations" in row else "")
+        if "deflation" in row:
+            d = row["deflation"]
+            counts += (f" deflation={d['mode']}:{d['filled']}/{d['rank']}"
+                       f" active={d['active']}")
         print(f"session[{keystr}]: solves={row['solves']} "
               f"first={row['first_solve_s']:.3f}s steady={steady} "
               + counts)

@@ -185,15 +185,19 @@ def test_cuda_request_without_gpu_raises():
 
 
 def test_specs_refuse_what_is_not_ported():
-    """Refinement and bf16 specs are accepted now; deflation and unknown
-    spellings still raise."""
+    """Refinement, bf16 and deflation specs are accepted now; deflation
+    combined with refinement or a method off the normal equations, and
+    unknown spellings, still raise."""
     assert api.SolveSpec(inner_dtype="f32").inner_dtype == "f32"
     assert api.SolveSpec(inner_dtype="bf16", inner_tol=1e-3).inner_tol == \
         1e-3
     with pytest.raises(ValueError, match="inner_dtype"):
         api.SolveSpec(inner_dtype="f16")
-    with pytest.raises(NotImplementedError, match="deflation"):
-        api.SolveSpec(deflate_rank=4)
+    assert api.SolveSpec(deflate_rank=4).deflate_rank == 4
+    with pytest.raises(ValueError, match="not combinable"):
+        api.SolveSpec(deflate_rank=4, inner_dtype="f32")
+    with pytest.raises(ValueError, match="normal-equations"):
+        api.SolveSpec(method="bicgstab", deflate_rank=4)
     assert api.BackendSpec("cuda_fused", dtype="bf16").dtype == "bf16"
     assert api.BackendSpec("cuda_fused_stream", dtype="bfloat16"
                            ).validated("cpu").dtype == "bf16"
