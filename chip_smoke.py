@@ -78,6 +78,20 @@ Run from a checkout: it builds the CUDA kernels from
    undeflated one on the same source, every ``Dhat`` through B2 or B1;
    a ``BasisSnapshot`` round trip of the basis, bit-equal, whose restore
    solves in the same iterations;
+7e. drives the resilience path at 16^4 (``resilience``, hot gauge, cgnr
+   tol 1e-6, every ``Dhat`` counted): a flipped exponent bit caught by
+   ``audit_gauge`` and repaired at bind (full, ``two_row`` and
+   ``minimal`` links, each solved on B2 to a full-lattice residual
+   <= 1e-5 against the repaired field, unless the repair put a link at
+   the ``minimal`` codec's singular point, where that bind must refuse);
+   a NaN column of a 12-source block under
+   ``auto`` (B1) contained, the other 11 bit-equal to the clean block's;
+   ``nan_operator`` on B2 tripping the guard mid-iteration;
+   ``cuda_fused_stream`` (B3) broken by ``break_ops`` falling back to
+   ``cuda_fused`` (every later ``Dhat`` two B1 launches), ``cuda_hop``
+   broken falling back to ``torch_ref`` on the card (no launch), a
+   broken solve with fallback off raising; the CLI with ``--validate
+   repair --fallback``; prints the audit, repair and rebind times;
 8. times the unbatched solve against the batched pipeline with a block
    of one source at wilson-16x16x16x16 (the candidate removal of the
    unbatched solvers), and steady solves under each Dhat policy (two B1
@@ -103,7 +117,8 @@ Run from a checkout: it builds the CUDA kernels from
 
 It exits non-zero at the first failed phase.  The line before the last
 is a JSON object ``{"kernels": [...]}`` (with each kernel's launches on
-the block CG and deflation paths, and B1's row the 16^4 x 200 timing); the last line is
+the block CG, deflation and resilience paths, and B1's row the 16^4 x
+200 timing); the last line is
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the
 reference package.
 """
@@ -204,6 +219,11 @@ REFINED = (("auto", "f32", 1e-4, 1, "dhat_planar_fused"),
 DEFLATION_LATTICE = "wilson-16x16x16x16"
 DEFLATION_RANK, DEFLATION_ITERS = 24, 200
 WEAK_EPS, WEAK_KAPPA, WEAK_SOLVES = 0.2, 0.124, 16
+# The resilience phase: the hot gauge and sources of its runs (cgnr, tol
+# 1e-6, f32), the seed of the flipped link (bitflip_gauge's top exponent
+# bit) and the column a NaN poisons in the 12-source block.
+RESILIENCE_LATTICE = "wilson-16x16x16x16"
+RESILIENCE_SEED, BITFLIP_SEED, POISONED_COLUMN = 31, 5, 5
 # (lattice, nrhs) where the bf16 kernels are timed beside the f32 ones.
 BF16_POINTS = (("wilson-16x16x16x16", 1), ("wilson-16x16x16x16", 12),
                ("wilson-64x16x16x8", 1))
@@ -222,6 +242,17 @@ class PhaseError(RuntimeError):
 def check(cond, msg):
     if not cond:
         raise PhaseError(msg)
+
+
+def undegraded(what, *sessions):
+    """Every session of a timed run ran the backend it names: fallback
+    off, no walk taken (only the resilience phase arms fallback)."""
+    for sess in sessions:
+        st = sess.stats()
+        check(not sess.matrix.fallback_enabled and not st["degraded"]
+              and st["fallbacks"] == 0,
+              f"{what}: timed on a session with fallback armed or "
+              f"degraded: {sess.matrix!r}, stats {st}")
 
 
 def fields(shape, dtype, device, seed):
@@ -705,8 +736,11 @@ def drive(argv, what, full_tol=1e-5):
     from repro_torch.launch import solve as launch_solve
     print(f"{what}: python -m repro_torch.launch.solve {' '.join(argv)}",
           flush=True)
+    check("--fallback" not in argv, f"{what}: timed runs keep fallback off")
     with DhatCount() as count:
         out = launch_solve.main(argv)
+    check(not out["stats"]["degraded"] and out["stats"]["fallbacks"] == 0,
+          f"{what}: the run degraded: {out['stats']['fallback_events']}")
     print(f"{what}: {count.dhats} Dhat applications (by dtype "
           f"{count.dtypes}, by source count {count.widths}), launches "
           f"{count.launches}", flush=True)
@@ -1017,6 +1051,7 @@ def phase_deflation(device):
                       f"{xe.device} (must be the card)")
                 iters.append(int(res.iterations))
                 rels.append(rel)
+            undegraded(f"weak gauge {label}", sess)
             (row,) = sess.stats()["keys"].values()
             out[label] = {"iterations": iters, "build_s": build,
                           "steady_s": row["steady_state_s"],
@@ -1142,6 +1177,305 @@ def time_lanczos_b1(device, nrhs):
     return row
 
 
+def _broken_at_fault(ops, seen):
+    """``break_ops(ops)`` whose entry points first append the launch
+    counts at the moment of the fault to ``seen``: what the failed
+    attempt launched before its first ``Dhat`` raised."""
+    from repro_torch.kernels import wilson_stencil as ws
+    from repro_torch.resilience import break_ops
+    bad = break_ops(ops)
+
+    def at_fault(fn):
+        def noted(v, kappa):
+            seen.append(dict(ws.LAUNCHES))
+            return fn(v, kappa)
+        return noted
+    return dataclasses.replace(bad, **{
+        f: at_fault(getattr(bad, f)) for f in (
+            "apply_dhat_native", "apply_dhat_dagger_native",
+            "apply_dhat_native_batched", "apply_dhat_dagger_native_batched")})
+
+
+def _timed_ms(fn, n=3):
+    """``fn()`` once to warm up, then the median wall time (ms) of ``n``
+    calls, each ended by a synchronise; returns (last result, ms)."""
+    import torch
+    out = fn()
+    walls = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return out, statistics.median(walls)
+
+
+def phase_resilience(device):
+    """The resilience path at RESILIENCE_LATTICE (hot gauge, kappa 0.13,
+    cgnr tol 1e-6, f32), every ``Dhat`` counted with :class:`DhatCount`:
+
+    1. audit and repair: ``bitflip_gauge`` flips exponent bit 30 of one
+       link; ``audit_gauge`` must report it; ``bind(validate="repair")``
+       under ``auto`` with full, ``two_row`` and ``minimal`` links solves
+       one source on B2, to a full-lattice residual <= 1e-5 against the
+       repaired field; the ``minimal`` bind refuses with ``ValueError``
+       instead exactly when the repaired field has a link at that
+       codec's singular point (``minimal_singular_links``), and then
+       launches nothing; ``validate="warn"`` emits one RuntimeWarning;
+    2. containment: a 12-source block under ``auto`` (two B1 launches per
+       ``Dhat``) with column POISONED_COLUMN poisoned by
+       ``nan_spinor_column``: that column diverged, the other 11
+       converged and bit-equal to the clean block's;
+    3. mid-iteration guard: ``cuda_fused``'s native ``Dhat`` (B2) wrapped
+       by ``nan_operator``: the solve returns diverged after 0 < k <
+       max_iters iterations;
+    4. fallback: ``cuda_fused_stream`` with ``fallback=True`` solves the
+       block on B3, then with ``break_ops`` rebinds to ``cuda_fused``,
+       where every ``Dhat`` after the fault is two B1 launches and B3
+       makes none; ``cuda_hop`` broken reaches ``torch_ref``, which
+       launches no kernel after the fault and answers on the card; with
+       fallback off the broken solve raises ``InjectedFault`` and commits
+       no solve;
+    5. the CLI with ``--validate repair --fallback`` and its defaults.
+
+    Returns the launches of every run, by kernel."""
+    import contextlib
+    import io
+    import warnings
+
+    import torch
+
+    from repro_torch import api
+    from repro_torch.core import evenodd, su3
+    from repro_torch.launch import solve as launch_solve
+    from repro_torch.resilience import (InjectedFault, audit_gauge,
+                                        bitflip_gauge, break_ops,
+                                        nan_operator, nan_spinor_column,
+                                        repair_gauge)
+    from repro_torch.resilience.validate import minimal_singular_links
+    shape = CHECK_SHAPES[RESILIENCE_LATTICE]
+    gen = torch.Generator().manual_seed(RESILIENCE_SEED)
+    U = su3.random_gauge(gen, shape, device=device)
+    U_e, U_o = evenodd.pack_gauge(U)
+    one = _sources(shape, 1, device, gen, torch.complex64)
+    block = _sources(shape, 12, device, gen, torch.complex64)
+    spec = api.SolveSpec(method="cgnr", tol=1e-6)
+    launches = {"hop_block_planar": 0, "dhat_planar_fused": 0,
+                "dhat_planar_fused_stream": 0}
+
+    def tally(count):
+        for k, v in count.launches.items():
+            launches[k] += v
+
+    def want(b1=0, b2=0, b3=0):
+        return {"hop_block_planar": b1, "dhat_planar_fused": b2,
+                "dhat_planar_fused_stream": b3}
+
+    def block_rels(Uf, xe, xo, ee, eo):
+        return [_full_residual(Uf, *cols, KAPPA)
+                for cols in zip(xe, xo, ee, eo)]
+
+    # 1. Audit and repair.
+    bad = bitflip_gauge(U_e, seed=BITFLIP_SEED)
+    flips = (bad.view(torch.float32).view(torch.int32)
+             ^ U_e.contiguous().view(torch.float32).view(torch.int32))
+    check(int((flips != 0).sum()) == 1
+          and int(flips[flips != 0]) == 1 << 30,
+          "bitflip_gauge did not flip exactly exponent bit 30 of one real")
+    report, audit_ms = _timed_ms(lambda: audit_gauge(bad, U_o))
+    check(not report.ok and report.max_defect > report.tolerance,
+          f"the audit missed the flipped link: {report}")
+    repaired, repair_ms = _timed_ms(lambda: repair_gauge(bad, U_o))
+    check(repaired[2].repaired and repaired[2].ok,
+          f"repair_gauge left {repaired[2]}")
+    singular = minimal_singular_links(*repaired[:2])
+    rels = {}
+    for gc in ("none", "two_row", "minimal"):
+        with DhatCount() as count:
+            try:
+                m = api.WilsonMatrix.bind(
+                    bad, U_o, KAPPA, validate="repair",
+                    backend=api.BackendSpec("auto", gauge_compression=gc))
+            except ValueError as exc:
+                refusal = exc
+            else:
+                refusal = None
+                xe, xo, res = api.SolveSession(m, spec).solve(*one)
+        tally(count)
+        if refusal is not None:
+            rels[gc] = f"refused ({refusal})"
+            check(gc == "minimal" and singular and "two_row" in str(refusal)
+                  and count.dhats == 0 and count.launches == want(),
+                  f"repaired bind ({gc}) refused: {refusal}; {singular} "
+                  f"links at the minimal codec's singular point, launches "
+                  f"{count.launches}")
+            continue
+        R = torch.stack([evenodd.unpack(a, b) for a, b in
+                         zip(*m.gauge_complex(torch.complex64))])
+        rel = _full_residual(R, xe, xo, *one, KAPPA)
+        rels[gc] = f"{rel:.2e}"
+        check(m.backend.name == "cuda_fused" and m.gauge_audit.repaired
+              and m.gauge_audit.ok and res.converged and rel <= 1e-5
+              and not (gc == "minimal" and singular)
+              and count.launches == want(2, count.dhats) and count.dhats,
+              f"repaired bind ({gc}): {m!r}, audit {m.gauge_audit}, "
+              f"converged {res.converged}, residual {rel:.2e}, "
+              f"launches {count.launches} for {count.dhats} Dhats, "
+              f"{singular} links at the minimal codec's singular point")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        api.WilsonMatrix.bind(bad, U_o, KAPPA, validate="warn")
+    n_warn = sum(issubclass(w.category, RuntimeWarning) for w in caught)
+    check(n_warn == 1, f"validate='warn' emitted {n_warn} RuntimeWarnings")
+    print(f"resilience audit: {RESILIENCE_LATTICE} flipped bit 30 of one "
+          f"real (seed {BITFLIP_SEED}): {report}; audit "
+          f"{audit_ms:.2f} ms, repair {repair_ms:.2f} ms (median of 3, "
+          f"both halves); repaired solves on B2, full-lattice residual "
+          + ", ".join(f"{gc} {r}" for gc, r in rels.items())
+          + f" ({singular} repaired links at the minimal codec's singular "
+          "point); validate='warn' gave one RuntimeWarning", flush=True)
+
+    # 2. Containment: one NaN in column POISONED_COLUMN of the block.
+    sess = api.SolveSession(api.WilsonMatrix.bind(U_e, U_o, KAPPA), spec)
+    with DhatCount() as count:
+        xc, oc, clean, _ = sess.solve_block(*block)
+        xb, ob, res, _ = sess.solve_block(
+            nan_spinor_column(block[0], POISONED_COLUMN), block[1])
+    tally(count)
+    j = POISONED_COLUMN
+    healthy = [i for i in range(12) if i != j]
+    check(bool(res.diverged[j]) and not bool(res.converged[j]),
+          f"poisoned column {j}: diverged {bool(res.diverged[j])}, "
+          f"converged {bool(res.converged[j])}")
+    check(all(bool(res.converged[i]) and torch.equal(xb[i], xc[i])
+              and torch.equal(ob[i], oc[i]) for i in healthy),
+          "a healthy column is not converged or not bit-equal to the "
+          "clean block's: something mixes columns")
+    check(count.launches == want(2 * count.dhats + 4),
+          f"containment: launches {count.launches} for {count.dhats} "
+          "Dhats; expected two B1 launches each and two hops per solve")
+    print(f"resilience containment: 12-source block under auto, column "
+          f"{j} poisoned: diverged after {int(res.iterations[j])} "
+          f"iterations; the other 11 converged in "
+          f"{[int(res.iterations[i]) for i in healthy]} iterations, "
+          f"bit-equal to the clean block's; every Dhat two B1 launches",
+          flush=True)
+
+    # 3. The mid-iteration guard on B2.
+    m = api.WilsonMatrix.bind(U_e, U_o, KAPPA, backend="cuda_fused")
+    m.ops = dataclasses.replace(
+        m.ops, apply_dhat_native=nan_operator(m.ops.apply_dhat_native))
+    with DhatCount() as count:
+        _, _, res = api.SolveSession(m, spec).solve(*one)
+    tally(count)
+    check(res.diverged and not res.converged
+          and 0 < res.iterations < spec.max_iters
+          and count.launches == want(2, count.dhats) and count.dhats,
+          f"nan_operator on B2: diverged {res.diverged}, converged "
+          f"{res.converged}, iterations {res.iterations}, launches "
+          f"{count.launches} for {count.dhats} Dhats")
+    print(f"resilience guard: nan_operator on cuda_fused's Dhat (B2): "
+          f"diverged after {res.iterations} iterations, returned without "
+          f"raising", flush=True)
+
+    # 4. Fallback: cuda_fused_stream -> cuda_fused on the block.
+    m = api.WilsonMatrix.bind(U_e, U_o, KAPPA, backend="cuda_fused_stream",
+                              fallback=True)
+    with DhatCount() as count:
+        _, _, res = api.SolveSession(m, spec).solve(*block)
+    tally(count)
+    b3_healthy = count.launches["dhat_planar_fused_stream"]
+    check(bool(res.converged.all())
+          and count.launches == want(2, 0, count.dhats),
+          f"healthy cuda_fused_stream: launches {count.launches} for "
+          f"{count.dhats} Dhats")
+    seen = []
+    m.ops = _broken_at_fault(m.ops, seen)
+    sess = api.SolveSession(m, spec)
+    with DhatCount() as count:
+        xe, xo, res = sess.solve(*block)
+    tally(count)
+    after = {k: v - seen[0][k] for k, v in count.launches.items()}
+    st = sess.stats()
+    rels = block_rels(U, xe, xo, *block)
+    check(st["backend"] == "cuda_fused" and st["fallbacks"] == 1
+          and st["degraded"] and sess.matrix.degraded
+          and st["fallback_events"][0][0] == "cuda_fused_stream"
+          and "InjectedFault" in st["fallback_events"][0][1]
+          and xe.device == U.device and max(rels) <= 1e-5,
+          f"cuda_fused_stream fallback: stats {st}, solution on "
+          f"{xe.device}, residuals {rels}")
+    check(seen[0] == want(1) and after == want(2 * count.dhats + 2),
+          f"cuda_fused_stream fallback: launches {seen[0]} before the "
+          f"fault, {after} after it for {count.dhats} Dhats; expected "
+          f"{want(1)} (the right-hand side's hop), then two B1 launches "
+          f"per Dhat and two hops")
+    _, rebind_ms = _timed_ms(lambda: m.fallback_next("timing"))
+    print(f"resilience fallback: cuda_fused_stream ({b3_healthy} B3 "
+          f"launches healthy) broken -> cuda_fused: events "
+          f"{st['fallback_events']}, degraded {st['degraded']}; after the "
+          f"fault {after} for {count.dhats} Dhats, B3 none; residual max "
+          f"{max(rels):.2e}; rebind to cuda_fused (bind with its layout "
+          f"conversion) {rebind_ms:.2f} ms (median of 3)", flush=True)
+
+    # cuda_hop -> torch_ref, one source: torch_ref computes on the card.
+    m = api.WilsonMatrix.bind(U_e, U_o, KAPPA, backend="cuda_hop",
+                              fallback=True)
+    seen = []
+    m.ops = _broken_at_fault(m.ops, seen)
+    sess = api.SolveSession(m, spec)
+    with DhatCount() as count:
+        xe, xo, res = sess.solve(*one)
+    tally(count)
+    after = {k: v - seen[0][k] for k, v in count.launches.items()}
+    st = sess.stats()
+    rel = _full_residual(U, xe, xo, *one, KAPPA)
+    check(st["backend"] == "torch_ref" and st["fallbacks"] == 1
+          and st["degraded"] and seen[0] == want(1) and after == want()
+          and count.dhats == 0 and xe.device == U.device
+          and res.converged and rel <= 1e-5,
+          f"cuda_hop fallback: stats {st}, launches {seen[0]} before the "
+          f"fault and {after} after, solution on {xe.device}, residual "
+          f"{rel:.2e}")
+    print(f"resilience fallback: cuda_hop broken -> torch_ref on "
+          f"{xe.device}: no kernel launch after the fault, "
+          f"{res.iterations} iterations, residual {rel:.2e}", flush=True)
+
+    # Fallback off: the broken solve raises and commits nothing.
+    m = api.WilsonMatrix.bind(U_e, U_o, KAPPA, backend="cuda_fused_stream")
+    m.ops = break_ops(m.ops)
+    sess = api.SolveSession(m, spec)
+    try:
+        sess.solve(*block)
+        raised = False
+    except InjectedFault:
+        raised = True
+    check(raised and sess.stats()["solves"] == 0
+          and sess.stats()["fallbacks"] == 0,
+          f"fallback off: raised {raised}, stats {sess.stats()}")
+    print("resilience fallback off: the broken solve raised InjectedFault, "
+          "solves=0", flush=True)
+
+    # 5. The CLI with its defaults.
+    buf = io.StringIO()
+    with DhatCount() as count, contextlib.redirect_stdout(buf):
+        out = launch_solve.main(["--validate", "repair", "--fallback"])
+    tally(count)
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    check("gauge audit:" in text and "fallbacks=0 degraded=False" in text
+          and out["backend"] == "cuda_fused" and out["residuals"][0] <= 1e-5
+          and count.launches == want(2, count.dhats),
+          f"CLI --validate repair --fallback: backend {out['backend']}, "
+          f"residuals {out['residuals']}, launches {count.launches} for "
+          f"{count.dhats} Dhats")
+    print(f"resilience launches (every run of the phase): {launches}",
+          flush=True)
+    return {"launches": launches, "audit_ms": audit_ms,
+            "repair_ms": repair_ms, "rebind_ms": rebind_ms}
+
+
 def phase_block_of_one(device, shape=None, n_solves=6):
     """The unbatched solve against the batched pipeline given the same
     source as a block of one (``solve_block``), on one session at the
@@ -1174,6 +1508,7 @@ def phase_block_of_one(device, shape=None, n_solves=6):
             if device.type == "cuda":
                 torch.cuda.synchronize()
             times[label].append(time.perf_counter() - t0)
+    undegraded("block of one", session)
     steady = {k: statistics.median(t[1:]) for k, t in times.items()}
     iters = {"unbatched": int(out["unbatched"][2].iterations),
              "block of one": int(out["block of one"][2].iterations[0])}
@@ -1228,6 +1563,7 @@ def phase_policy_solves(device, n_solves=6):
                 iters[policy] = int(torch.as_tensor(res.iterations).max())
                 check(bool(torch.as_tensor(res.converged).all()),
                       f"{lattice} x {nrhs} under {policy} did not converge")
+        undegraded(f"solve {lattice} x {nrhs}", *sessions.values())
         steady = {k: statistics.median(t[1:]) for k, t in times.items()}
         auto = ops.auto_policy(_planar_shape(shape, nrhs))
         print(f"solve: {lattice} x {nrhs} source(s), cgnr tol 1e-6, steady "
@@ -1598,6 +1934,7 @@ def phase_refined_times(device, n_solves=4):
                 torch.cuda.synchronize()
                 times[label].append(time.perf_counter() - t0)
                 last[label] = res
+        undegraded(f"refined time x {nrhs}", *sessions.values())
         for label, res in last.items():
             rel = float(torch.as_tensor(res.residual).max())
             check(bool(torch.as_tensor(res.converged).all())
@@ -1777,6 +2114,7 @@ def main(argv=None):
     refined = timed("refined", phase_refined)
     blockcg = timed("blockcg", phase_blockcg, runs2["auto"])
     deflation = timed("deflation", phase_deflation, device)
+    resilience = timed("resilience", phase_resilience, device)
     timed("block_of_one", phase_block_of_one, device)
     timed("policy_solves", phase_policy_solves, device)
     copy_bps = copy_bandwidth(device)
@@ -1873,6 +2211,11 @@ def main(argv=None):
           and kernels[1]["launches_deflation"] > 0,
           "B1 or B2 made no launch on the blockcg or deflation path")
     kernels[0]["lanczos_batch"] = lanczos_b1
+    # The resilience path: each kernel's launches over its runs.
+    for row in kernels:
+        row["launches_resilience"] = resilience["launches"][row["name"]]
+        check(row["launches_resilience"] > 0,
+              f"{row['name']} made no launch on the resilience path")
     print(f"total: {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -5,13 +5,15 @@ once: the backend's layout conversion (complex -> planar planes, link
 compression) and its policy happen at :meth:`WilsonMatrix.bind`, on the
 gauge's device, and every application reuses the bound state.  The
 exact complex gauge is kept beside it for the f64 operator of refined
-solves (:meth:`WilsonMatrix.gauge_complex`), and the deflation states
-of its normal operator are cached on it
+solves (:meth:`WilsonMatrix.gauge_complex`) and for rebinding down the
+backend's fallback chain (:meth:`WilsonMatrix.fallback_next`), and the
+deflation states of its normal operator are cached on it
 (:meth:`WilsonMatrix.ensure_deflation`).
 """
 from __future__ import annotations
 
-from typing import Optional
+import warnings
+from typing import Optional, Tuple
 
 import torch
 
@@ -50,23 +52,126 @@ class WilsonMatrix:
         self.device = device
         self._exact_gauge = gauge
         self._deflation = {}
+        # Resilience state, set by bind and fallback_next.
+        self.fallback_enabled = False
+        self.fallback_events: Tuple[Tuple[str, str], ...] = ()
+        self.requested_backend = backend.name
+        self.gauge_audit = None
 
     @classmethod
-    def bind(cls, U_e, U_o, kappa: float,
-             backend="auto") -> "WilsonMatrix":
+    def bind(cls, U_e, U_o, kappa: float, backend="auto",
+             validate: str = "none",
+             fallback: bool = False) -> "WilsonMatrix":
         """Bind the named backend (a :class:`BackendSpec` or registry
         name; ``"auto"`` resolves by the gauge's device) to complex
-        even/odd gauge halves ``(4, T, Z, Y, Xh, 3, 3)``."""
+        even/odd gauge halves ``(4, T, Z, Y, Xh, 3, 3)``.
+
+        ``validate`` audits the gauge for SU(3) unitarity and finiteness
+        first (:mod:`repro_torch.resilience.validate`): ``"none"`` skips,
+        ``"warn"`` emits a ``RuntimeWarning`` on a defect, ``"repair"``
+        projects the links back onto SU(3) (non-finite ones become the
+        identity), on the dense field before any codec packs it.  The
+        report lands on ``.gauge_audit``.  With ``minimal`` links it also
+        counts the links at that codec's singular point
+        (:func:`repro_torch.resilience.validate.minimal_singular_links`,
+        where a repaired non-finite link lands): ``"warn"`` warns,
+        ``"repair"`` raises ``ValueError``.
+
+        ``fallback=True`` arms graceful degradation: a bind that raises
+        ``RuntimeError`` walks the declared fallback chain
+        (:func:`repro_torch.resilience.fallback_chain`) here, and a
+        solve that raises one later makes :class:`~repro_torch.api.
+        SolveSession` walk it through :meth:`fallback_next`.  Each step
+        lands on ``.fallback_events`` and sets ``.degraded``.  Off by
+        default: a failing kernel then raises.
+        """
+        if validate not in ("none", "warn", "repair"):
+            raise ValueError(
+                f"validate must be 'none'|'warn'|'repair', "
+                f"got {validate!r}")
         if U_o.shape != U_e.shape or U_o.device != U_e.device:
             raise ValueError("U_e and U_o must share shape and device")
+        audit = None
+        if validate != "none":
+            from ..resilience import validate as _rv
+            if validate == "repair":
+                U_e, U_o, audit = _rv.repair_gauge(U_e, U_o)
+            else:
+                audit = _rv.audit_gauge(U_e, U_o)
+                if not audit.ok:
+                    warnings.warn(
+                        f"gauge fails SU(3) audit: {audit}; bind with "
+                        "validate='repair' to project links back onto "
+                        "the group", RuntimeWarning, stacklevel=2)
         spec = BackendSpec.coerce(backend).validated(U_e.device)
+        if validate != "none" and spec.gauge_compression == "minimal":
+            n = _rv.minimal_singular_links(U_e, U_o)
+            if n:
+                msg = (f"{n} link(s) lie at the 'minimal' codec's singular "
+                       "point |a2|^2 + |a3|^2 = 0, where it would bind an "
+                       "operator other than D_W of the field; bind with "
+                       "gauge_compression='two_row' or 'none'")
+                if validate == "repair":
+                    raise ValueError(msg)
+                warnings.warn(msg, RuntimeWarning, stacklevel=2)
+        events = []
+        if fallback:
+            from ..resilience import adapt_spec, fallback_chain
+            for i, name in enumerate(fallback_chain(spec.name)):
+                try_spec = spec if i == 0 else adapt_spec(spec, name)
+                try:
+                    m = cls._bind_one(U_e, U_o, kappa, try_spec)
+                    break
+                except RuntimeError as exc:
+                    events.append((name, repr(exc)))
+                    last_exc = exc
+            else:
+                raise last_exc
+        else:
+            m = cls._bind_one(U_e, U_o, kappa, spec)
+        m.fallback_enabled = bool(fallback)
+        m.fallback_events = tuple(events)
+        m.requested_backend = spec.name
+        m.gauge_audit = audit
+        return m
+
+    @classmethod
+    def _bind_one(cls, U_e, U_o, kappa, spec: BackendSpec) -> "WilsonMatrix":
         lattice = LatticeSpec.from_eo_gauge(U_e)
         ops = backends.make_wilson_ops(spec.name, U_e, U_o,
                                        **spec.factory_opts())
         # The planar leaves are rounded to the compute dtype (bf16 ones
         # lie ~1e-3 off the field), so refined solves take their f64
-        # operator from the exact halves kept here.
+        # operator, and fallback rebinds their gauge, from the exact
+        # (repaired, if asked) halves kept here.
         return cls(ops, kappa, lattice, spec, U_e.device, gauge=(U_e, U_o))
+
+    @property
+    def degraded(self) -> bool:
+        """True when the matrix does not run the backend it was asked
+        for (a fallback fired at bind or solve time)."""
+        return (bool(self.fallback_events)
+                or self.requested_backend != self.backend.name)
+
+    def fallback_next(self, reason: str = "") -> Optional["WilsonMatrix"]:
+        """The matrix rebound onto the next backend of its declared
+        fallback chain, from the exact gauge, on the same device, with
+        ``(failed backend, reason)`` appended to ``fallback_events``;
+        ``None`` when the chain ends here.  Deflation states are not
+        carried across (the new backend builds its own)."""
+        from ..resilience import adapt_spec, fallback_chain
+        chain = fallback_chain(self.backend.name)
+        if len(chain) < 2 or self._exact_gauge is None:
+            return None
+        U_e, U_o = self._exact_gauge
+        m = self._bind_one(U_e, U_o, self.kappa,
+                           adapt_spec(self.backend, chain[1]))
+        m.fallback_enabled = self.fallback_enabled
+        m.requested_backend = self.requested_backend
+        m.gauge_audit = self.gauge_audit
+        m.fallback_events = self.fallback_events + (
+            (self.backend.name, reason),)
+        return m
 
     def gauge_complex(self, dtype=torch.complex128):
         """The complex even/odd gauge halves the matrix was bound from,

@@ -15,8 +15,10 @@ matrix's deflation state (:meth:`WilsonMatrix.ensure_deflation`) and
 passes its basis to the pipeline as an argument; a recycle key harvests
 each converged column back into the basis.  PyTorch runs eagerly, so
 there is no trace to cache; the ``traces`` counter counts pipeline
-builds under the reference's name.  The reference's fallback counters
-wait for the resilience slice.
+builds under the reference's name.  A matrix bound with
+``fallback=True`` makes a failed solve walk its backend's fallback
+chain (:meth:`SolveSession.solve`), counted in ``stats()["fallbacks"]``
+beside the matrix's ``degraded`` flag and ``fallback_events``.
 """
 from __future__ import annotations
 
@@ -69,7 +71,7 @@ class SolveSession:
         self.default_spec = spec if spec is not None else SolveSpec()
         self._cache = {}
         self._counters = {"solves": 0, "traces": 0, "cache_hits": 0,
-                          "cache_misses": 0}
+                          "cache_misses": 0, "fallbacks": 0}
 
     def _sync(self):
         if self.matrix.device.type == "cuda":
@@ -79,8 +81,32 @@ class SolveSession:
         """Solve ``D_W xi = eta`` for one even/odd source pair, or a block
         of them on a leading ``nrhs`` axis; returns ``(xi_e, xi_o,
         result)`` with ``result.x`` the decoded ``xi_e`` (per-column
-        result fields for a block)."""
+        result fields for a block).
+
+        When the matrix was bound with ``fallback=True``, a solve that
+        raises ``RuntimeError`` (a kernel's launch or build failure, an
+        out-of-memory error, an injected fault) rebinds the matrix onto
+        the next backend of its chain (:meth:`WilsonMatrix.
+        fallback_next`), flushes the pipelines (they belong to the failed
+        backend) and retries; a failed attempt commits no counter but
+        ``fallbacks``.  Without it, or at the end of the chain, the
+        error is raised.
+        """
         spec = self.default_spec if spec is None else spec
+        while True:
+            try:
+                return self._solve_once(eta_e, eta_o, spec)
+            except RuntimeError as exc:
+                if not self.matrix.fallback_enabled:
+                    raise
+                nxt = self.matrix.fallback_next(repr(exc))
+                if nxt is None:
+                    raise
+                self.matrix = nxt
+                self._cache.clear()
+                self._counters["fallbacks"] += 1
+
+    def _solve_once(self, eta_e, eta_o, spec: SolveSpec):
         batched = spec.validate_rhs(eta_e, eta_o, self.matrix.lattice)
         key = (spec, tuple(eta_e.shape), str(eta_e.dtype))
         t0 = time.perf_counter()
@@ -88,7 +114,6 @@ class SolveSession:
         hit = entry is not None
         if entry is None:
             entry = self._build(spec, batched)
-            self._counters["traces"] += 1
         x = None
         if entry.kind == "refined":
             xi_e, xi_o, res = entry.fn(eta_e, eta_o)
@@ -107,6 +132,8 @@ class SolveSession:
         # Commit cache and counters only after the solve ran.
         self._cache[key] = entry
         self._counters["cache_hits" if hit else "cache_misses"] += 1
+        if not hit:
+            self._counters["traces"] += 1
         self._counters["solves"] += 1
         if entry.kind == "refined":
             entry.outer.append(int(res.outer_iterations))
@@ -224,7 +251,9 @@ class SolveSession:
         ``col_iterations``, the per-column counts of each solve; refined
         keys (``kind: "refined"``) list ``outer_iterations`` and
         ``escalations`` per solve.  A deflated key has a ``deflation``
-        row: mode, rank, filled and active slots, harvests."""
+        row: mode, rank, filled and active slots, harvests.  ``backend``
+        is the backend the session runs now; ``degraded`` and
+        ``fallback_events`` are its matrix's."""
         keys = {}
         for (spec, shape, dtype), entry in self._cache.items():
             steady = sorted(entry.times[1:])
@@ -254,5 +283,7 @@ class SolveSession:
         return {
             **self._counters,
             "backend": self.matrix.backend.name,
+            "degraded": self.matrix.degraded,
+            "fallback_events": list(self.matrix.fallback_events),
             "keys": keys,
         }

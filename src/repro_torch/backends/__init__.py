@@ -122,8 +122,8 @@ class BackendCapabilities:
     * ``batched_kernels`` — its operators take a leading RHS axis
       natively (otherwise the ``*_batched`` fields map over it).
     * ``fallback`` — the next backend of its degradation chain; every
-      chain ends in ``torch_ref``.  Recorded here as registry data; no
-      code walks it yet.
+      chain ends in ``torch_ref`` (walked by :mod:`repro_torch.
+      resilience.fallback`).
     """
 
     name: str

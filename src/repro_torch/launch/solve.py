@@ -12,6 +12,8 @@
         --method blockcg                                # block CG
     PYTHONPATH=src python -m repro_torch.launch.solve --n-solves 3 \
         --deflate-rank 24 --deflate-iters 200           # Lanczos deflation
+    PYTHONPATH=src python -m repro_torch.launch.solve \
+        --validate repair --fallback                    # audit, degrade
 
 The arguments become one ``(LatticeSpec, BackendSpec, SolveSpec)``; the
 random gauge field is bound once into a :class:`repro_torch.api.
@@ -32,6 +34,10 @@ harvests them from the solves); the ``session[...]`` line then shows the
 basis as ``deflation=mode:filled/rank active=N``.  ``--ckpt-dir DIR``
 saves each solve's ``(xi_e, xi_o)`` there
 (:class:`repro_torch.checkpoint.Checkpointer`).
+``--validate warn|repair`` audits the gauge at bind and prints a
+``gauge audit:`` line; ``--fallback`` lets a failing backend degrade
+down its declared chain (a ``DEGRADED:`` line at bind, ``fallbacks=``
+and ``degraded=`` on the session line).
 ``--backend auto`` is ``cuda_fused`` on ``cuda`` and ``torch_ref`` on
 ``cpu``; ``--backend help`` lists the registry and exits.
 """
@@ -62,9 +68,10 @@ def _print_backend_info():
 
 
 def main(argv=None):
-    """Run the solves; returns a summary dict: backend and domain, per
-    solve the iterations and full-lattice residual (the most of any
-    column) and their per-column lists (``col_iterations``,
+    """Run the solves; returns a summary dict: the backend and domain
+    the session ended on (after any fallback), per solve the iterations
+    and full-lattice residual (the most of any column) and their
+    per-column lists (``col_iterations``,
     ``col_residuals``), the full-lattice solutions, kernel launches of
     this run, session stats, and for a refined solve ``results`` (each
     solve's :class:`repro_torch.core.solver.RefinedResult`)."""
@@ -112,6 +119,17 @@ def main(argv=None):
                          "solutions")
     ap.add_argument("--deflate-iters", type=int, default=0,
                     help="Lanczos steps (0 = auto)")
+    ap.add_argument("--validate", default="none",
+                    choices=["none", "warn", "repair"],
+                    help="SU(3) gauge audit at bind: 'warn' reports "
+                         "unitarity/finiteness defects, 'repair' projects "
+                         "defective links back onto the group before any "
+                         "codec packs them")
+    ap.add_argument("--fallback", action="store_true",
+                    help="on a backend failure at bind or solve time, "
+                         "walk the declared fallback chain toward "
+                         "torch_ref (on the same device) instead of "
+                         "raising")
     ap.add_argument("--ckpt-dir", default="",
                     help="save each solve's (xi_e, xi_o) in this "
                          "directory")
@@ -158,10 +176,17 @@ def main(argv=None):
     U = su3.random_gauge(gen, lattice.extents, device=device)
     U_e, U_o = evenodd.pack_gauge(U)
     # Bind once: layout conversion and policy happen here.
-    matrix = api.WilsonMatrix.bind(U_e, U_o, args.kappa, backend=bspec)
+    matrix = api.WilsonMatrix.bind(U_e, U_o, args.kappa, backend=bspec,
+                                   validate=args.validate,
+                                   fallback=args.fallback)
     session = api.SolveSession(matrix, sspec)
     print(f"backend {matrix.backend.name} (native domain: "
           f"{matrix.domain})", flush=True)
+    if args.validate != "none":
+        print(f"gauge audit: {matrix.gauge_audit}")
+    if matrix.degraded:
+        print(f"DEGRADED: requested {matrix.requested_backend}, running "
+              f"{matrix.backend.name}; events={matrix.fallback_events}")
 
     # A refined solve iterates its solution in f64: the sources, the
     # solutions and the full-lattice check are complex128.
@@ -239,13 +264,15 @@ def main(argv=None):
               + counts)
     print(f"session: solves={st['solves']} traces={st['traces']} "
           f"cache_hits={st['cache_hits']} "
-          f"cache_misses={st['cache_misses']}")
+          f"cache_misses={st['cache_misses']} "
+          f"fallbacks={st['fallbacks']} degraded={st['degraded']}")
     launches = {k: v - launches0[k]
                 for k, v in wilson_stencil.LAUNCHES.items()}
     print("kernel launches: " + " ".join(
         f"{k}={v}" for k, v in launches.items()))
     print("done", flush=True)
-    return {"backend": matrix.backend.name, "domain": matrix.domain,
+    return {"backend": session.matrix.backend.name,
+            "domain": session.matrix.domain,
             "nrhs": nrhs, "iterations": iterations, "residuals": residuals,
             "col_iterations": col_iterations,
             "col_residuals": col_residuals, "solutions": solutions,

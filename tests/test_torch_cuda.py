@@ -1,8 +1,10 @@
 """CUDA kernels B1 (periodic and halo mode), B2 and B3 against their
 plain versions in f32, f64 and bf16, the two-launch Dhat against B2,
 the batched solve through B3, a refined solve with bf16 inner solves,
-Lanczos-deflated cgnr and blockcg on cuda_fused against torch_ref, and
-Checkpointer round trips of device tensors, on the card.
+Lanczos-deflated cgnr and blockcg on cuda_fused against torch_ref,
+Checkpointer round trips of device tensors, the fallback walks
+cuda_fused -> cuda_hop and cuda_hop -> torch_ref, and the gauge repair,
+on the card.
 
 These tests need a GPU (marker ``cuda``) and skip without one, deciding
 in the ``cuda`` fixture; they import neither JAX
@@ -415,3 +417,65 @@ def test_checkpointer_round_trip_on_the_card(cuda, dtype, tmp_path):
     for g, t in zip(got, basis):
         assert g.device == t.device and g.dtype == t.dtype
         assert torch.equal(g, t)
+
+
+def _problem_8(cuda, seed=14):
+    gen = torch.Generator().manual_seed(seed)
+    U = su3.random_gauge(gen, (8, 8, 8, 8), device=cuda)
+    U_e, U_o = evenodd.pack_gauge(U)
+    eta = torch.complex(torch.randn((8, 8, 8, 8, 4, 3), generator=gen),
+                        torch.randn((8, 8, 8, 8, 4, 3), generator=gen))
+    ee, eo = evenodd.pack(eta.to(cuda))
+    return U, U_e, U_o, eta.to(cuda), ee, eo
+
+
+def _full_rel(U, eta, xe, xo):
+    from repro_torch.core import wilson
+    r = eta - wilson.apply_wilson(U, evenodd.unpack(xe, xo), KAPPA)
+    return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(eta))
+
+
+@pytest.mark.parametrize("start,end", [("cuda_fused", "cuda_hop"),
+                                       ("cuda_hop", "torch_ref")])
+def test_fallback_walk_on_the_card(cuda, start, end):
+    """Broken native Dhats (``break_ops``) at 8^4 with fallback armed:
+    the session rebinds one rung down on the card and solves there;
+    cuda_hop's solve is B1 launches only, torch_ref's launches no kernel
+    after the fault, and the solution stays on the card."""
+    from repro_torch.resilience import break_ops
+    U, U_e, U_o, eta, ee, eo = _problem_8(cuda)
+    matrix = api.WilsonMatrix.bind(U_e, U_o, KAPPA, backend=start,
+                                   fallback=True)
+    matrix.ops = break_ops(matrix.ops)
+    session = api.SolveSession(matrix, api.SolveSpec(method="cgnr",
+                                                     tol=1e-6))
+    ws.reset_launch_counts()
+    xe, xo, res = session.solve(ee, eo)
+    torch.cuda.synchronize()
+    st = session.stats()
+    assert st["backend"] == end and st["fallbacks"] == 1 and st["degraded"]
+    assert "InjectedFault" in st["fallback_events"][0][1]
+    assert res.converged and xe.device.type == "cuda"
+    assert _full_rel(U, eta, xe, xo) <= 1e-5
+    # The failed attempt launched one B1 hop (the right-hand side) before
+    # its first Dhat raised.
+    b1 = 2 * (2 * res.iterations + 2) + 2 + 1 if end == "cuda_hop" else 1
+    assert dict(ws.LAUNCHES) == {"hop_block_planar": b1,
+                                 "dhat_planar_fused": 0,
+                                 "dhat_planar_fused_stream": 0}
+
+
+def test_repair_gauge_on_the_card_matches_cpu(cuda):
+    """``repair_gauge`` of a bit-flipped field with a NaN link on the
+    card equals the CPU result within 5e-5 (f32)."""
+    from repro_torch.resilience import bitflip_gauge, repair_gauge
+    _, U_e, U_o, _, _, _ = _problem_8(cuda)
+    bad = bitflip_gauge(U_e, seed=5, bit=27)
+    bad[1, 0, 2, 3, 1, 2, 0] = float("nan")
+    got = repair_gauge(bad, U_o)
+    want = repair_gauge(bad.cpu(), U_o.cpu())
+    assert got[2].repaired and got[2].ok and want[2].ok
+    assert got[2].nonfinite_links == want[2].nonfinite_links == 0
+    for g, w in zip(got[:2], want[:2]):
+        assert g.device.type == "cuda"
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=5e-5)

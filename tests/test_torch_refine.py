@@ -11,7 +11,6 @@ The reference's refined solve needs ``jax_enable_x64``, a global flag
 that must not leak into the other test files of a worker: it runs in a
 subprocess on the same numpy inputs.  Lattice 4x4x4x8.
 """
-import dataclasses
 import json
 import os
 import subprocess
@@ -28,6 +27,7 @@ from repro.core import solver as jsolver
 from repro_torch import api, convert
 from repro_torch.core import evenodd, solver
 from repro_torch.launch import solve as launch_solve
+from repro_torch.resilience import dead_inner_ops
 
 SHAPE = (4, 4, 4, 8)
 KAPPA = 0.13
@@ -261,18 +261,6 @@ def test_refined_solve_through_cuda_fused_reaches_f64_tol(dtype, inner_tol,
         assert float(rel) <= 1e-9
 
 
-def _dead(ops):
-    """``ops`` with a zero native Dhat (and dagger), batched too: every
-    correction solve returns a zero update, so the outer loop stalls
-    (the reference's ``dead_inner_ops``)."""
-    def zero(v, kappa):
-        return torch.zeros_like(v)
-    return dataclasses.replace(
-        ops, apply_dhat_native=zero, apply_dhat_dagger_native=zero,
-        apply_dhat_native_batched=zero,
-        apply_dhat_dagger_native_batched=zero)
-
-
 @pytest.mark.parametrize("dead,escalate", [(True, True), (True, False),
                                            (False, True)])
 def test_escalation(dead, escalate):
@@ -283,7 +271,7 @@ def test_escalation(dead, escalate):
     U_e, U_o, e, o = eo_problem(seed=2)
     matrix = api.WilsonMatrix.bind(U_e, U_o, KAPPA, backend="torch_ref")
     if dead:
-        matrix.ops = _dead(matrix.ops)
+        matrix.ops = dead_inner_ops(matrix.ops)
     session = api.SolveSession(matrix, api.SolveSpec(
         method="cgnr", tol=1e-10, inner_dtype="f32", inner_tol=1e-4,
         max_outer=25 if escalate else 5, escalate=escalate))
