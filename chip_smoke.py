@@ -17,8 +17,11 @@ Run from a checkout: it builds the CUDA kernels from
    wilson-16x16x16x16 and wilson-64x16x16x8 (tolerance: f32 5e-5, f64
    1e-10 absolute, the reference's parity tolerances); then B1's halo
    mode on halo-extended arrays with random halos, with four tz_offsets,
-   on three of those shapes (per-real and 16-byte link copies), where it
-   must also equal periodic mode on wrap-extended arrays bit for bit;
+   on three of those shapes (per-real and 16-byte link copies) and on
+   the thin slabs of the distributed boundary passes (``SLAB_SHAPES``:
+   one t-row or one z-plane of 16^4 under a 2 x 2 grid and at one rank),
+   where it must also equal periodic mode on wrap-extended arrays bit
+   for bit;
    then the two-launch Dhat (two B1 launches) against B2, bit for bit,
    at every shape, link form and ``FUSED_NRHS``;
 3. holds kernel B2 (fused Dhat) against its plain version over the same
@@ -92,6 +95,20 @@ Run from a checkout: it builds the CUDA kernels from
    broken falling back to ``torch_ref`` on the card (no launch), a
    broken solve with fallback off raising; the CLI with ``--validate
    repair --fallback``; prints the audit, repair and rebind times;
+7f. drives the distributed operator at one rank (``distributed``): one
+   ``Dhat`` of each overlap mode launches B1 exactly 2 (fused), 10
+   (interior) or 8 + 2 (split, 2 periodic) times, fused bit-equal to
+   ``cuda_hop``'s two-launch ``Dhat``, interior and split within 5e-5
+   (bit equality printed), at ``DIST_POINTS``; then the CLI with
+   ``--backend distributed --overlap MODE`` (cgnr, tol 1e-6) at those
+   points, counters set to 0 just before: every hop's B1 launches by
+   mode exactly, every column within the residual gate, in
+   ``cuda_hop``'s iterations; then four gloo ranks spawned on the one
+   card (``four_ranks``, a 2 x 2 grid at 16^4, faces staged through
+   pinned host buffers): every mode with full and ``two_row`` links, 1
+   and 12 sources (1 in split), the gathered ``Dhat`` within 5e-5 of
+   ``cuda_hop``'s, a cgnr solve per mode within one iteration of one
+   process's, and the fused ``Dhat``'s wall time beside its exchanges';
 8. times the unbatched solve against the batched pipeline with a block
    of one source at wilson-16x16x16x16 (the candidate removal of the
    unbatched solvers), and steady solves under each Dhat policy (two B1
@@ -110,15 +127,19 @@ Run from a checkout: it builds the CUDA kernels from
    solves against a pure-f64 ``cuda_fused`` solve to the same 1e-10, and
    the bf16 kernels beside the f32 ones at ``BF16_POINTS`` with their
    bf16 bounds, and B1 at 16^4 with the Lanczos basis's 200 sources
-   beside its bound and against its plain version.  With ``--parent-log FILE``
-   (repeatable), the output of other runs in the same call (the parent
+   beside its bound and against its plain version; steady distributed
+   solves per overlap mode beside ``cuda_hop`` at 16^4 x 1 and x 12,
+   with one fused ``Dhat``'s device time beside its source extensions';
+   and B1 on the slabs (``SLAB_POINTS``) beside its bound.  With
+   ``--parent-log FILE`` (repeatable), the output of other runs in the same call (the parent
    commit's ``chip_smoke.py``; ``tools/time_tree.py`` on another tree)
    gives their times at each policy and B1 point beside this run's.
 
 It exits non-zero at the first failed phase.  The line before the last
 is a JSON object ``{"kernels": [...]}`` (with each kernel's launches on
 the block CG, deflation and resilience paths, and B1's row the 16^4 x
-200 timing); the last line is
+200 timing, its launches by mode on the distributed path and its slab
+times); the last line is
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the
 reference package.
 """
@@ -227,6 +248,23 @@ RESILIENCE_SEED, BITFLIP_SEED, POISONED_COLUMN = 31, 5, 5
 # (lattice, nrhs) where the bf16 kernels are timed beside the f32 ones.
 BF16_POINTS = (("wilson-16x16x16x16", 1), ("wilson-16x16x16x16", 12),
                ("wilson-64x16x16x8", 1))
+# The distributed phase: (lattice, nrhs) of the one-rank CLI runs, the
+# overlap modes (split takes one source), B1's launches per hop in each
+# mode as (halo, periodic), the four-rank job's grid and lattice (Tl = Zl
+# = 8, every rank on the one card), and the thin slabs that the
+# interior and split modes launch B1 on: output (T, Z, Y, X) of the t-row
+# and z-column slabs of 16^4 under that grid and at one rank.
+DIST_POINTS = (("wilson-16x16x16x16", 1), ("wilson-16x16x16x16", 12),
+               ("wilson-64x16x16x8", 1))
+DIST_MODES = ("fused", "interior", "split")
+DIST_HOP_LAUNCHES = {"fused": (1, 0), "interior": (5, 0), "split": (4, 1)}
+DIST_GRID, DIST_LATTICE = (2, 2), "wilson-16x16x16x16"
+SLAB_SHAPES = {"slab-1x8x16x16": (1, 8, 16, 16),
+               "slab-8x1x16x16": (8, 1, 16, 16),
+               "slab-1x16x16x16": (1, 16, 16, 16),
+               "slab-16x1x16x16": (16, 1, 16, 16)}
+SLAB_POINTS = tuple((name, nrhs, "f32", 18, True) for name in SLAB_SHAPES
+                    for nrhs in (1, 12))
 # Published H100 SXM peaks (NVIDIA data sheet, dense, no tensor cores, at
 # the full 700 W power limit): the bound of every kernel is taken at them.
 # bf16 kernels compute in f32 registers, so their operations count at the
@@ -450,8 +488,8 @@ def phase_b1(device):
             print(f"B1 vs plain: {sname} {dtype}: ok "
                   f"(worst so far {worst[dtype]:.3e}, atol "
                   f"{ATOL[dtype]:g})", flush=True)
-    for sname in HALO_SHAPES:
-        shape = CHECK_SHAPES[sname]
+    for sname in HALO_SHAPES + tuple(SLAB_SHAPES):
+        shape = lattice_shape(sname)
         for dtype in ("f32", "f64"):
             gauges, spinor, centre = halo_fields(shape, dtype, device,
                                                  seed=17)
@@ -695,13 +733,28 @@ class DhatCount:
     """Counts, while entered, the ``Dhat`` applications at the policy
     entry point (``ops.apply_dhat_planar_any``): in all, by the dtype of
     their vector, and by their source count (``widths``: 1 for an
-    unbatched vector); the launch counters are set to 0 on entry and
-    read on exit (``launches``), after a synchronise."""
+    unbatched vector); and those of the distributed operator
+    (``dist_dhats``, at the functions ``qcd.make_dhat_fn`` returns); the
+    launch counters are set to 0 on entry and read on exit
+    (``launches``, and B1's by mode, ``b1_modes``), after a
+    synchronise."""
 
     def __enter__(self):
+        from repro_torch.distributed import qcd
         from repro_torch.kernels import ops, wilson_stencil as ws
         self.dhats, self.dtypes, self.widths = 0, {}, {}
+        self.dist_dhats = 0
         self._entry = ops.apply_dhat_planar_any
+        self._make_dhat = qcd.make_dhat_fn
+
+        def counted_make(part, kappa):
+            fn = self._make_dhat(part, kappa)
+
+            def dhat(links, v):
+                self.dist_dhats += 1
+                return fn(links, v)
+            return dhat
+        qcd.make_dhat_fn = counted_make
 
         def counted(*args, **kwargs):
             v = args[2]
@@ -718,10 +771,13 @@ class DhatCount:
     def __exit__(self, *exc):
         import torch
 
+        from repro_torch.distributed import qcd
         from repro_torch.kernels import ops, wilson_stencil as ws
         ops.apply_dhat_planar_any = self._entry
+        qcd.make_dhat_fn = self._make_dhat
         torch.cuda.synchronize()
         self.launches = dict(ws.LAUNCHES)
+        self.b1_modes = dict(ws.B1_MODE_LAUNCHES)
         return False
 
 
@@ -749,7 +805,8 @@ def drive(argv, what, full_tol=1e-5):
               f"{what} solve {i}: column full-lattice residuals {rels} "
               f"(each <= {full_tol:g})")
     return dict(out, launches=count.launches, dhats=count.dhats,
-                dhat_dtypes=count.dtypes, dhat_widths=count.widths)
+                dhat_dtypes=count.dtypes, dhat_widths=count.widths,
+                dist_dhats=count.dist_dhats, b1_modes=count.b1_modes)
 
 
 def check_path(what, run, kernel, n_solves):
@@ -1576,6 +1633,333 @@ def phase_policy_solves(device, n_solves=6):
     return out
 
 
+def _dist_fields(shape, nrhs, device, seed=1):
+    """Complex gauge halves and even-half planar sources (``nrhs`` of
+    them, a leading axis above 1) of the distributed phase, from a seeded
+    CPU generator: every rank of the four-rank job draws the same."""
+    import torch
+
+    from repro_torch.core import evenodd, su3
+    from repro_torch.kernels import layout
+    gen = torch.Generator().manual_seed(seed)
+    U = su3.random_gauge(gen, shape)
+    U_e, U_o = evenodd.pack_gauge(U)
+    ee, eo = _sources(shape, nrhs, "cpu", gen, torch.complex64)
+    return (U.to(device), U_e.to(device), U_o.to(device), ee.to(device),
+            eo.to(device), layout.spinor_to_planar(ee).to(device))
+
+
+def _dist_matrix(U_e, U_o, mode, group=None, grid=(1, 1), gc="none"):
+    from repro_torch import api
+    from repro_torch.distributed import qcd
+    part = qcd.QCDPartition(group=group, t_ranks=grid[0], z_ranks=grid[1],
+                            overlap=mode)
+    return api.WilsonMatrix.bind(
+        U_e, U_o, KAPPA, backend=api.BackendSpec(
+            "distributed", gauge_compression=gc), partition=part)
+
+
+def phase_distributed(device):
+    """The distributed operator at one rank, on the card.
+
+    Per ``Dhat`` of each overlap mode, B1's launches by mode, exactly (2
+    halo in fused, 10 halo in interior, 8 halo + 2 periodic in split);
+    the fused ``Dhat`` bit-equal to ``cuda_hop``'s two-launch one, the
+    other modes within 5e-5 of it (bit equality printed), at every
+    ``DIST_POINTS``; then the CLI (``--backend distributed --overlap
+    MODE``, cgnr tol 1e-6) at each point and mode, counters set to 0
+    just before: every hop's B1 launches counted exactly (two hops per
+    ``Dhat`` and two per solve), each solve within the residual gate and
+    in ``cuda_hop``'s iterations on the same sources.  Returns the runs
+    and the launches of B1 by mode over them."""
+    import torch
+
+    from repro_torch import api
+    from repro_torch.kernels import wilson_stencil as ws
+    for lattice, nrhs in DIST_POINTS:
+        shape = CHECK_SHAPES[lattice]
+        _, U_e, U_o, _, _, psi = _dist_fields(shape, nrhs, device)
+        hop = api.WilsonMatrix.bind(U_e, U_o, KAPPA, backend="cuda_hop")
+        want = hop.apply_native(psi)
+        for mode in DIST_MODES:
+            if mode == "split" and nrhs > 1:
+                continue
+            m = _dist_matrix(U_e, U_o, mode)
+            m.apply_native(psi)                 # warm, bound
+            torch.cuda.synchronize()
+            ws.reset_launch_counts()
+            got = m.apply_native(psi)
+            torch.cuda.synchronize()
+            halo_n, periodic_n = DIST_HOP_LAUNCHES[mode]
+            check(ws.B1_MODE_LAUNCHES == {"halo": 2 * halo_n,
+                                          "periodic": 2 * periodic_n}
+                  and ws.LAUNCHES == {
+                      "hop_block_planar": 2 * (halo_n + periodic_n),
+                      "dhat_planar_fused": 0,
+                      "dhat_planar_fused_stream": 0},
+                  f"distributed {mode} {lattice} x {nrhs}: one Dhat "
+                  f"launched {ws.LAUNCHES}, B1 by mode "
+                  f"{ws.B1_MODE_LAUNCHES}")
+            err = float((got - want).abs().max())
+            equal = bool(torch.equal(got, want))
+            check(equal if mode == "fused" else err <= ATOL["f32"],
+                  f"distributed {mode} {lattice} x {nrhs}: Dhat differs "
+                  f"from cuda_hop's by {err:.3e}"
+                  + (" (must be bit-equal)" if mode == "fused" else ""))
+            print(f"distributed: {lattice} x {nrhs} {mode}: one Dhat = "
+                  f"B1 {dict(ws.B1_MODE_LAUNCHES)}; against cuda_hop's "
+                  f"two-launch Dhat max abs diff {err:.3e}, bit-equal "
+                  f"{equal}", flush=True)
+            del m
+        del hop
+        torch.cuda.empty_cache()
+    runs, totals = {}, {"halo": 0, "periodic": 0}
+    for lattice, nrhs in DIST_POINTS:
+        base = ["--lattice", lattice, "--nrhs", str(nrhs), "--method",
+                "cgnr", "--tol", "1e-6", "--n-solves", "1", "--seed", "1",
+                "--device", "cuda"]
+        ref = drive(base + ["--backend", "cuda_hop"],
+                    f"distributed {lattice} x {nrhs} cuda_hop")
+        for mode in DIST_MODES:
+            if mode == "split" and nrhs > 1:
+                continue
+            what = f"distributed {lattice} x {nrhs} {mode}"
+            run = drive(base + ["--backend", "distributed", "--overlap",
+                                mode], what)
+            hops = 2 * run["dist_dhats"] + 2
+            halo_n, periodic_n = DIST_HOP_LAUNCHES[mode]
+            want = {"halo": hops * halo_n, "periodic": hops * periodic_n}
+            check(run["backend"] == "distributed" and run["dhats"] == 0
+                  and run["dist_dhats"] >= 2 * sum(run["iterations"])
+                  and run["b1_modes"] == want
+                  and run["launches"] == {
+                      "hop_block_planar": sum(want.values()),
+                      "dhat_planar_fused": 0,
+                      "dhat_planar_fused_stream": 0},
+                  f"{what}: {run['dist_dhats']} Dhats, launches "
+                  f"{run['launches']}, B1 by mode {run['b1_modes']}; "
+                  f"expected {want} for {hops} hops")
+            check(run["col_iterations"] == ref["col_iterations"],
+                  f"{what}: iterations {run['col_iterations']}, cuda_hop "
+                  f"{ref['col_iterations']}")
+            print(f"{what}: {run['dist_dhats']} Dhats, B1 {run['b1_modes']}"
+                  f" (exact); iterations {run['col_iterations']} as "
+                  f"cuda_hop; full-lattice residual max "
+                  f"{max(max(r) for r in run['col_residuals']):.2e}",
+                  flush=True)
+            for k in totals:
+                totals[k] += run["b1_modes"][k]
+            runs[(lattice, nrhs, mode)] = run
+    return {"runs": runs, "b1_modes": totals}
+
+
+def _dist_rank(rank, world, port, out_path, device_type="cuda",
+               backend="gloo"):
+    """One rank of the four-rank job (spawned): the gathered ``Dhat`` of
+    every overlap mode with full and ``two_row`` links, one and 12
+    sources (one in split); a cgnr solve per mode; the fused ``Dhat``'s
+    wall time and its source exchange's.  Rank 0 saves the results to
+    ``out_path``.  gloo puts every rank on card 0 (``device_type``
+    ``"cpu"`` rehearses the job without a card); NCCL puts rank r on
+    card r."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    from repro_torch import api
+    from repro_torch.distributed import halo
+    cuda = device_type == "cuda"
+    index = rank if backend == "nccl" else 0
+    if cuda:
+        torch.cuda.set_device(index)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        device = torch.device(device_type, index if cuda else None)
+        shape = CHECK_SHAPES[DIST_LATTICE]
+        out = {"dhat": {}, "solve": {}, "times": {}}
+        group = dist.group.WORLD
+        grid = halo.TZGrid(group, *DIST_GRID)
+        for nrhs in (1, 12):
+            U, U_e, U_o, ee, eo, _ = _dist_fields(shape, nrhs, device)
+            for gc in ("none", "two_row"):
+                for mode in DIST_MODES:
+                    if mode == "split" and nrhs > 1:
+                        continue
+                    m = _dist_matrix(U_e, U_o, mode, group, DIST_GRID, gc)
+                    w = m.apply_native(m.encode(ee))
+                    out["dhat"][nrhs, gc, mode] = halo.gather_tz(
+                        grid, w, w.ndim - 5).cpu()
+            if nrhs == 1:
+                for mode in DIST_MODES:
+                    m = _dist_matrix(U_e, U_o, mode, group, DIST_GRID)
+                    sess = api.SolveSession(
+                        m, api.SolveSpec(method="cgnr", tol=1e-6))
+                    xe, xo, res = sess.solve(ee, eo)
+                    out["solve"][mode] = (int(res.iterations),
+                                          _full_residual(U, xe, xo, ee, eo,
+                                                         KAPPA))
+            # Wall time of the fused Dhat and of the exchanges of its
+            # source (two extensions, t then z faces each), ranks in step.
+            m = _dist_matrix(U_e, U_o, "fused", group, DIST_GRID)
+            v = m.encode(ee)
+            lead = v.ndim - 5
+
+            def timed(fn, n=10):
+                ts = []
+                for _ in range(n + 2):
+                    dist.barrier()
+                    if cuda:
+                        torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    if cuda:
+                        torch.cuda.synchronize()
+                    ts.append(time.perf_counter() - t0)
+                return statistics.median(ts[2:])
+            out["times"][nrhs] = (
+                timed(lambda: m.apply_native(v)),
+                2 * timed(lambda: halo.extend_tz(v, grid, lead, lead + 1)))
+        if rank == 0:
+            torch.save(out, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_four_ranks(device, backend="gloo"):
+    """Four ranks (``torch.multiprocessing``, spawn), a 2 x 2 grid at
+    ``DIST_LATTICE`` (Tl = Zl = 8): gloo on the one card (faces staged
+    through pinned host buffers), or NCCL on four cards (device
+    buffers; ``tools/four_gpus_nccl.py``).  Every gathered ``Dhat``
+    within 5e-5 of the one-process ``cuda_hop`` ``Dhat`` on ``device``,
+    each mode's cgnr solve within one iteration of the one-process count
+    and within the residual gate; prints the fused ``Dhat``'s wall time
+    and its source exchange's share beside ``halo_traffic_model``'s
+    bytes."""
+    import shutil
+    import socket
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch import api
+    from repro_torch.distributed import halo
+    out_dir = ROOT / "build" / "chip_smoke_dist"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    world = DIST_GRID[0] * DIST_GRID[1]
+    t0 = time.time()
+    mp.start_processes(_dist_rank, args=(world, port,
+                                         str(out_dir / "out.pt"), "cuda",
+                                         backend),
+                       nprocs=world, join=True, start_method="spawn")
+    res = torch.load(out_dir / "out.pt", weights_only=False)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    cards = "one card" if backend == "gloo" else f"{world} cards"
+    print(f"four ranks: {backend} job of {world} ranks on {cards}, "
+          f"{time.time() - t0:.1f} s", flush=True)
+    shape = CHECK_SHAPES[DIST_LATTICE]
+    T, Z, Y, X = shape
+    Tl, Zl = T // DIST_GRID[0], Z // DIST_GRID[1]
+    worst = 0.0
+    for nrhs in (1, 12):
+        U, U_e, U_o, ee, eo, psi = _dist_fields(shape, nrhs, device)
+        for gc in ("none", "two_row"):
+            hop = api.WilsonMatrix.bind(U_e, U_o, KAPPA, backend=api.
+                                        BackendSpec("cuda_hop",
+                                                    gauge_compression=gc))
+            want = hop.apply_native(psi).cpu()
+            for mode in DIST_MODES:
+                if mode == "split" and nrhs > 1:
+                    continue
+                err = float((res["dhat"][nrhs, gc, mode] - want).abs().max())
+                worst = max(worst, err)
+                check(err <= ATOL["f32"],
+                      f"four ranks {mode} {gc} x {nrhs}: gathered Dhat "
+                      f"{err:.3e} off cuda_hop's")
+        if nrhs == 1:
+            sess = api.SolveSession(
+                api.WilsonMatrix.bind(U_e, U_o, KAPPA, backend="cuda_hop"),
+                api.SolveSpec(method="cgnr", tol=1e-6))
+            single = int(sess.solve(ee, eo)[2].iterations)
+            for mode, (iters, rel) in res["solve"].items():
+                check(abs(iters - single) <= 1 and rel <= 1e-5,
+                      f"four ranks {mode}: cgnr {iters} iterations (one "
+                      f"process: {single}), full-lattice residual "
+                      f"{rel:.2e}")
+            print(f"four ranks: cgnr tol 1e-6 per mode (iterations, "
+                  f"full-lattice residual) {res['solve']}; one process "
+                  f"(cuda_hop) {single} iterations", flush=True)
+        dhat_s, exch_s = res["times"][nrhs]
+        model = halo.halo_traffic_model(Tl, Zl, Y, X // 2, nrhs=nrhs)
+        print(f"four ranks: {DIST_LATTICE} x {nrhs} on a {DIST_GRID[0]} x "
+              f"{DIST_GRID[1]} grid, fused Dhat {dhat_s * 1e3:.3f} ms wall "
+              f"(median of 10, ranks in step), its source exchanges "
+              f"(two extend_tz, {backend}) {exch_s * 1e3:.3f} ms = "
+              f"{exch_s / dhat_s:.0%}; halo_traffic_model per rank: "
+              f"{2 * model['bytes_spinor_exchange']} B of spinor faces per "
+              f"Dhat (gauge hoisted to the bind: "
+              f"{model['bytes_gauge_exchange']} B once), "
+              f"bytes_dhat_exchange {model['bytes_dhat_exchange']} B",
+              flush=True)
+    print(f"four ranks: every gathered Dhat (3 modes x full/two_row, 1 and "
+          f"12 sources) within {worst:.3e} of cuda_hop's (atol 5e-5)",
+          flush=True)
+    return res
+
+
+def phase_distributed_times(device, n_solves=6):
+    """Steady cgnr solves (tol 1e-6) at one rank in each overlap mode
+    beside ``cuda_hop`` at 16^4 x 1 and x 12, sessions alternating; and
+    the device time of one fused ``Dhat`` beside that of its source's
+    two halo extensions (local wraps at one rank)."""
+    import torch
+
+    from repro_torch import api
+    from repro_torch.distributed import halo
+    out = {}
+    for lattice, nrhs in DIST_POINTS[:2]:
+        shape = CHECK_SHAPES[lattice]
+        _, U_e, U_o, ee, eo, psi = _dist_fields(shape, nrhs, device)
+        spec = api.SolveSpec(method="cgnr", tol=1e-6)
+        sessions = {"cuda_hop": api.SolveSession(api.WilsonMatrix.bind(
+            U_e, U_o, KAPPA, backend="cuda_hop"), spec)}
+        for mode in DIST_MODES:
+            if mode == "split" and nrhs > 1:
+                continue
+            sessions[mode] = api.SolveSession(
+                _dist_matrix(U_e, U_o, mode), spec)
+        times = {k: [] for k in sessions}
+        for _ in range(n_solves):
+            for k, sess in sessions.items():
+                t0 = time.perf_counter()
+                _, _, res = sess.solve(ee, eo)
+                torch.cuda.synchronize()
+                times[k].append(time.perf_counter() - t0)
+                check(bool(torch.as_tensor(res.converged).all()),
+                      f"{lattice} x {nrhs} {k} did not converge")
+        undegraded(f"distributed solves {lattice} x {nrhs}",
+                   *sessions.values())
+        steady = {k: statistics.median(t[1:]) for k, t in times.items()}
+        m = sessions["fused"].matrix
+        lead = psi.ndim - 5
+        dhat_ms = device_ms(lambda: m.apply_native(psi), 50)
+        ext_ms = 2 * device_ms(lambda: halo.extend_tz(
+            psi, halo.TZGrid(), lead, lead + 1), 50)
+        print(f"distributed times: {lattice} x {nrhs}, cgnr tol 1e-6, "
+              f"steady solve (median of {n_solves - 1} after the first) "
+              + ", ".join(f"{k} {v * 1e3:.2f} ms" for k, v in steady.items())
+              + f"; one fused Dhat {dhat_ms * 1e3:.1f} us of device time, "
+              f"its two source extensions {ext_ms * 1e3:.1f} us "
+              f"({ext_ms / dhat_ms:.0%})", flush=True)
+        out[(lattice, nrhs)] = dict(steady, dhat_ms=dhat_ms, ext_ms=ext_ms)
+        del sessions, m
+        torch.cuda.empty_cache()
+    return out
+
+
 def _planar_shape(shape, nrhs):
     """The planar even-half spinor shape of a lattice ``(T, Z, Y, X)``."""
     T, Z, Y, X = shape
@@ -1779,7 +2163,9 @@ def phase_times(device, paths, parent=None):
 
 
 def lattice_shape(lattice):
-    return BIG_LATTICE[1] if lattice == BIG_LATTICE[0] else \
+    if lattice == BIG_LATTICE[0]:
+        return BIG_LATTICE[1]
+    return SLAB_SHAPES[lattice] if lattice in SLAB_SHAPES else \
         CHECK_SHAPES[lattice]
 
 
@@ -2117,6 +2503,8 @@ def main(argv=None):
     resilience = timed("resilience", phase_resilience, device)
     timed("block_of_one", phase_block_of_one, device)
     timed("policy_solves", phase_policy_solves, device)
+    distributed = timed("distributed", phase_distributed, device)
+    timed("four_ranks", phase_four_ranks, device)
     copy_bps = copy_bandwidth(device)
     print(f"copy bandwidth: {copy_bps / 1e9:.0f} GB/s (device-to-device"
           f" copy, read + write; the bounds use the 3.35 TB/s peak)",
@@ -2131,6 +2519,8 @@ def main(argv=None):
     rows = timed("times", phase_times, device, paths, parent)
     timed("b1_times", time_b1, device, parent)
     timed("refined_times", phase_refined_times, device)
+    timed("distributed_times", phase_distributed_times, device)
+    slab_rows = timed("slab_times", time_b1, device, None, SLAB_POINTS)
     bf16_rows = timed("bf16_times", time_bf16, device)
     lanczos_b1 = timed("lanczos_b1", time_lanczos_b1, device,
                        deflation["m"])
@@ -2211,6 +2601,14 @@ def main(argv=None):
           and kernels[1]["launches_deflation"] > 0,
           "B1 or B2 made no launch on the blockcg or deflation path")
     kernels[0]["lanczos_batch"] = lanczos_b1
+    # The distributed path (one rank, the CLI in each overlap mode): B1's
+    # launches by mode, and its times on the slabs of the boundary passes.
+    kernels[0]["launches_distributed"] = distributed["b1_modes"]
+    check(distributed["b1_modes"]["halo"] > 0,
+          "B1 made no halo-mode launch on the distributed path")
+    kernels[0]["slabs"] = [
+        {"lattice": lattice, "nrhs": nrhs, **row}
+        for (lattice, nrhs, _, _, _), row in slab_rows.items()]
     # The resilience path: each kernel's launches over its runs.
     for row in kernels:
         row["launches_resilience"] = resilience["launches"][row["name"]]

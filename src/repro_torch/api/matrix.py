@@ -60,11 +60,16 @@ class WilsonMatrix:
 
     @classmethod
     def bind(cls, U_e, U_o, kappa: float, backend="auto",
-             validate: str = "none",
-             fallback: bool = False) -> "WilsonMatrix":
+             validate: str = "none", fallback: bool = False,
+             **bind_opts) -> "WilsonMatrix":
         """Bind the named backend (a :class:`BackendSpec` or registry
         name; ``"auto"`` resolves by the gauge's device) to complex
         even/odd gauge halves ``(4, T, Z, Y, Xh, 3, 3)``.
+
+        ``bind_opts`` are factory kwargs that do not belong in the spec,
+        as the reference's bind takes a mesh: ``partition`` (a
+        :class:`repro_torch.distributed.QCDPartition`) for the
+        ``distributed`` backend.  A fallback rebind drops them.
 
         ``validate`` audits the gauge for SU(3) unitarity and finiteness
         first (:mod:`repro_torch.resilience.validate`): ``"none"`` skips,
@@ -120,7 +125,8 @@ class WilsonMatrix:
             for i, name in enumerate(fallback_chain(spec.name)):
                 try_spec = spec if i == 0 else adapt_spec(spec, name)
                 try:
-                    m = cls._bind_one(U_e, U_o, kappa, try_spec)
+                    m = cls._bind_one(U_e, U_o, kappa, try_spec,
+                                      **(bind_opts if i == 0 else {}))
                     break
                 except RuntimeError as exc:
                     events.append((name, repr(exc)))
@@ -128,7 +134,7 @@ class WilsonMatrix:
             else:
                 raise last_exc
         else:
-            m = cls._bind_one(U_e, U_o, kappa, spec)
+            m = cls._bind_one(U_e, U_o, kappa, spec, **bind_opts)
         m.fallback_enabled = bool(fallback)
         m.fallback_events = tuple(events)
         m.requested_backend = spec.name
@@ -136,10 +142,11 @@ class WilsonMatrix:
         return m
 
     @classmethod
-    def _bind_one(cls, U_e, U_o, kappa, spec: BackendSpec) -> "WilsonMatrix":
+    def _bind_one(cls, U_e, U_o, kappa, spec: BackendSpec,
+                  **bind_opts) -> "WilsonMatrix":
         lattice = LatticeSpec.from_eo_gauge(U_e)
         ops = backends.make_wilson_ops(spec.name, U_e, U_o,
-                                       **spec.factory_opts())
+                                       **spec.factory_opts(), **bind_opts)
         # The planar leaves are rounded to the compute dtype (bf16 ones
         # lie ~1e-3 off the field), so refined solves take their f64
         # operator, and fallback rebinds their gauge, from the exact
@@ -208,6 +215,7 @@ class WilsonMatrix:
         they land.
         """
         from ..core import deflate
+        self.require_one_rank("deflation")
         rank = int(rank)
         if rank < 1:
             raise ValueError(f"deflation rank must be >= 1; got {rank}")
@@ -274,6 +282,21 @@ class WilsonMatrix:
                 normal_batched(ops.to_domain_batched(psi))))
         return deflate.planar_from_complex(basis, ops.to_domain_batched,
                                            rank)
+
+    @property
+    def multi_rank(self) -> bool:
+        """Whether a native vector is one rank's block of a lattice
+        split between several ranks."""
+        return self.ops.group_sum is not None
+
+    def require_one_rank(self, what: str) -> None:
+        """Raise ``NotImplementedError`` for ``what`` on a lattice split
+        between several ranks (not ported there yet)."""
+        if self.multi_rank:
+            raise NotImplementedError(
+                f"{what} is not ported for a lattice split between "
+                "several ranks (ROADMAP Queue A); solve with cg, cgnr or "
+                "bicgstab there")
 
     @property
     def domain(self) -> str:

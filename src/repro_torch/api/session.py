@@ -191,7 +191,10 @@ class SolveSession:
 
     def _build(self, spec: SolveSpec, batched: bool) -> _CacheEntry:
         m = self.matrix
+        if spec.method == "blockcg":
+            m.require_one_rank("blockcg")
         if spec.inner_dtype is not None:
+            m.require_one_rank("a refined solve (inner_dtype)")
             # Mixed-precision refinement: the bound matrix is the inner
             # backend (bound at the inner dtype); the f64 operator takes
             # the exact gauge.

@@ -20,6 +20,7 @@ import torch
 
 from .. import backends
 from ..core import solver as _solver
+from ..distributed.qcd import normalize_overlap
 
 __all__ = ["LatticeSpec", "BackendSpec", "SolveSpec"]
 
@@ -103,7 +104,9 @@ class BackendSpec:
     one;
     ``gauge_compression`` the stored link representation (``"none"`` |
     ``"two_row"`` | ``"minimal"``); ``opts`` extra ``(key, value)``
-    factory kwargs (e.g. ``("policy", "unfused")`` for ``cuda_fused``).
+    factory kwargs (e.g. ``("policy", "unfused")`` for ``cuda_fused``,
+    ``("overlap", "interior")`` or ``("local", "cuda_hop")`` for
+    ``distributed``), checked against the backend's policies.
     """
 
     name: str = "auto"
@@ -164,11 +167,20 @@ class BackendSpec:
                 f"backend {name!r} does not support gauge_compression "
                 f"{self.gauge_compression!r}; supported: "
                 f"{caps.gauge_compressions}")
-        policy = dict(self.opts).get("policy")
+        opts = dict(self.opts)
+        policy = opts.get("policy")
         if policy is not None and policy not in caps.policies:
             raise ValueError(
                 f"backend {name!r} has no policy {policy!r}; supported: "
                 f"{caps.policies}")
+        # The distributed backend's policies read "local:<stencil>" and
+        # "overlap:<mode>".
+        for key, value in (("local", opts.get("local")), ("overlap",
+                           normalize_overlap(opts.get("overlap")))):
+            if value is not None and f"{key}:{value}" not in caps.policies:
+                raise ValueError(
+                    f"backend {name!r} has no {key} {value!r}; supported: "
+                    f"{caps.policies}")
         return dataclasses.replace(self, name=name)
 
     def factory_opts(self) -> dict:

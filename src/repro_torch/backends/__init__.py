@@ -21,8 +21,13 @@ planar ones: one gauge load serves the whole RHS block) supplies them;
 any other gets a correct default that maps its unbatched operator over
 the leading axis with ``torch.func.vmap``.
 
+A backend whose native vector is one rank's block of a lattice split
+between the ranks of a process group (``distributed``) sets
+``group_sum``, the sum over the group that the solvers apply to every
+Krylov scalar before they read it (``None``: one rank).
+
 Built-in entries (:mod:`repro_torch.backends.wilson`): ``torch_ref``,
-``cuda_hop``, ``cuda_fused`` and ``cuda_fused_stream``.
+``cuda_hop``, ``cuda_fused``, ``cuda_fused_stream`` and ``distributed``.
 """
 from __future__ import annotations
 
@@ -61,6 +66,7 @@ class WilsonOps:
     hop_eo_native_batched: Callable = None
     apply_dhat_native_batched: Callable = None
     apply_dhat_dagger_native_batched: Callable = None
+    group_sum: Callable = None       # tensor -> its sum over the ranks
 
     def __post_init__(self):
         unbatched = {
@@ -83,7 +89,8 @@ class WilsonOps:
                     from_domain: Callable, hop_oe: Callable,
                     hop_eo: Callable, apply_dhat: Callable,
                     apply_dhat_dagger: Callable,
-                    batched: "dict | None" = None) -> "WilsonOps":
+                    batched: "dict | None" = None,
+                    group_sum: Callable = None) -> "WilsonOps":
         """Build from native-domain operators; ``batched`` maps
         ``*_batched`` field names to the backend's own batched
         operators (the rest take the mapped default)."""
@@ -91,7 +98,7 @@ class WilsonOps:
                    from_domain=from_domain, hop_oe_native=hop_oe,
                    hop_eo_native=hop_eo, apply_dhat_native=apply_dhat,
                    apply_dhat_dagger_native=apply_dhat_dagger,
-                   **(batched or {}))
+                   group_sum=group_sum, **(batched or {}))
 
 
 def _map1(fn: Callable) -> Callable:

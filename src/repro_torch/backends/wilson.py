@@ -11,6 +11,11 @@
 * ``cuda_fused_stream`` — planar, ``Dhat`` by policy ``stream`` (kernel
   B3, the ring of t-rows) at every shape; the role of
   ``pallas_fused_stream``.
+* ``distributed`` — native domain ``"planar_sharded"``: this rank's
+  planar block of a lattice split over t and z between the ranks of a
+  ``torch.distributed`` group (:mod:`repro_torch.distributed.qcd`), in
+  the ``fused``, ``interior`` or ``split`` overlap mode, its local step
+  kernel B1 in halo mode by default; the role of ``distributed``.
 
 Factories take complex even/odd gauge halves and convert them to the
 planar layout once, at bind time, on the gauge's device, at the planar
@@ -22,11 +27,13 @@ operators over the batch (the ``WilsonOps`` default).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
 
 from ..core import evenodd
+from ..distributed import halo, qcd
 from ..kernels import layout, ops
 from . import BackendCapabilities, WilsonOps, register_backend
 
@@ -117,6 +124,78 @@ def make_cuda_fused_backend(U_e, U_o, *, dtype="f32",
                         dtype=dtype, gauge_compression=gauge_compression)
 
 
+def make_distributed_backend(U_e, U_o, *, partition=None, local=None,
+                             overlap=None, dtype="f32",
+                             gauge_compression="none",
+                             **_unused) -> WilsonOps:
+    """The even-odd operator on a lattice split over t and z between the
+    ranks of a ``torch.distributed`` group.
+
+    ``partition`` (a :class:`repro_torch.distributed.QCDPartition`, a
+    bind option; default one rank) says how; ``local`` (the local
+    stencil) and ``overlap`` (``fused``, ``interior`` or ``split``, or
+    ``True`` / ``False`` for ``interior`` / ``fused``) override its
+    fields.  Every rank passes the global complex gauge halves; the bind
+    keeps this rank's planar block, compressed as asked (compressed links
+    are exchanged compressed), and with ``hoist_gauge`` exchanges its
+    halos once.  ``to_domain`` takes this rank's block of a global
+    complex spinor (every rank holds the global source); ``from_domain``
+    gathers the global field on every rank, one ``all_gather`` per
+    call.  The solvers sum their reductions over the group
+    (``group_sum``).
+    """
+    part = partition if partition is not None else qcd.QCDPartition()
+    changes = {"backend": local, "overlap": qcd.normalize_overlap(overlap)}
+    part = dataclasses.replace(
+        part, **{k: v for k, v in changes.items() if v is not None})
+    real = _DTYPES[dtype] if isinstance(dtype, str) else dtype
+    grid = part.grid
+    T, Z = U_e.shape[1], U_e.shape[2]
+    Tl, Zl = part.local_extents(T, Z)
+    t0, z0 = halo.local_origin(grid, Tl, Zl)
+
+    def block(a, t_axis):
+        return a.narrow(t_axis, t0, Tl).narrow(t_axis + 1, z0, Zl)
+
+    links = qcd.bind_links(part, *(
+        layout.gauge_compress_planar(
+            layout.gauge_to_planar(block(u, 1), real), gauge_compression)
+        for u in (U_e, U_o)))
+    hops = {p: qcd.make_hop_fn(part, p) for p in (evenodd.EVEN, evenodd.ODD)}
+
+    def to_domain(psi):
+        return layout.spinor_to_planar(block(psi, psi.ndim - 6), dtype=real)
+
+    def from_domain(v):
+        return layout.spinor_from_planar(halo.gather_tz(grid, v, v.ndim - 5))
+
+    def hop_oe(v):
+        return hops[evenodd.ODD](links, v)
+
+    def hop_eo(v):
+        return hops[evenodd.EVEN](links, v)
+
+    def apply_dhat(v, kappa):
+        return qcd.make_dhat_fn(part, kappa)(links, v)
+
+    def apply_dhat_dagger(v, kappa):
+        return qcd.make_dhat_dagger_fn(part, kappa)(links, v)
+
+    batched = {"to_domain_batched": to_domain,
+               "from_domain_batched": from_domain,
+               "hop_oe_native_batched": hop_oe,
+               "hop_eo_native_batched": hop_eo,
+               "apply_dhat_native_batched": apply_dhat,
+               "apply_dhat_dagger_native_batched": apply_dhat_dagger}
+    return WilsonOps.from_native(
+        "distributed", domain="planar_sharded", to_domain=to_domain,
+        from_domain=from_domain, hop_oe=hop_oe, hop_eo=hop_eo,
+        apply_dhat=apply_dhat, apply_dhat_dagger=apply_dhat_dagger,
+        batched=batched,
+        group_sum=(functools.partial(halo.group_sum, grid)
+                   if part.world > 1 else None))
+
+
 register_backend(
     "torch_ref", make_torch_ref_backend,
     capabilities=BackendCapabilities(
@@ -159,3 +238,18 @@ register_backend(
         description="Dhat as one cooperative CUDA launch over a ring of "
                     "8 odd-intermediate t-rows (working set independent "
                     "of T), pinned"))
+register_backend(
+    "distributed", make_distributed_backend,
+    capabilities=BackendCapabilities(
+        name="distributed", domain="planar_sharded",
+        gauge_form="planar_sharded", dtypes=tuple(_DTYPES),
+        policies=tuple(f"local:{n}" for n in qcd.LOCAL_STENCILS)
+        + tuple(f"overlap:{m}" for m in qcd.OVERLAPS),
+        gauge_compressions=_GAUGE_COMPRESSIONS,
+        kernels=("hop_block_planar",), batched_kernels=True,
+        fallback="torch_ref",
+        description="lattice split over t and z between the ranks of a "
+                    "torch.distributed group, halo exchange per hop (one "
+                    "message per face for a whole source block), the "
+                    "local step the hop-block CUDA kernel in halo mode; "
+                    "overlap fused, interior or split"))

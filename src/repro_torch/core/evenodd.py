@@ -14,7 +14,9 @@ roll (the paper's ``sel`` + ``tbl``).
 ``hop_oe`` (even -> odd) and ``hop_eo`` (odd -> even) are the two
 hopping blocks; the even-odd preconditioned operator of Eq. (4) is
 ``Dhat = 1 - kappa^2 * H_eo H_oe``.  This complex form is the port's
-reference path (the ``torch_ref`` backend).
+reference path (the ``torch_ref`` backend).  :func:`hop_block_ext` is
+the hopping block of one rank's block of a domain-decomposed lattice,
+on arrays extended by a halo in t and z.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from typing import Tuple
 import torch
 
 from . import gamma
-from .lattice import AXIS_OF_MU, MU_X, NDIM, row_parity
+from .lattice import AXIS_OF_MU, MU_X, MU_Y, MU_Z, NDIM, row_parity
 
 EVEN, ODD = 0, 1
 
@@ -119,3 +121,54 @@ def apply_dhat_dagger(U_e, U_o, psi_e, kappa):
     """``Dhat^dag`` via gamma5-hermiticity (g5 Dhat g5 = Dhat^dag)."""
     return gamma.apply_gamma5(
         apply_dhat(U_e, U_o, gamma.apply_gamma5(psi_e), kappa))
+
+
+def _masked_roll_x(arr: torch.Tensor, direction: int, out_parity: int,
+                   parity_offset: int) -> torch.Tensor:
+    """Parity-masked x-roll of a ``(T, Z, Y, Xh, ...)`` array (``sel`` +
+    ``tbl``), with the row parity shifted by a block origin's
+    ``parity_offset``."""
+    T, Z, Y = arr.shape[:3]
+    par = row_parity((T, Z, Y), trailing_dims=arr.ndim - 4,
+                     device=arr.device)
+    m = (out_parity + (1 if direction > 0 else 0) + parity_offset) % 2
+    return torch.where(par == m, torch.roll(arr, -direction, dims=3), arr)
+
+
+def hop_block_ext(U_out: torch.Tensor, U_in_ext: torch.Tensor,
+                  src_ext: torch.Tensor, out_parity: int,
+                  parity_offset: int = 0) -> torch.Tensor:
+    """Hopping block on halo-extended arrays (the distributed local step).
+
+    ``src_ext``: ``(Tl+2, Zl+2, Y, Xh, 4, 3)`` with t/z halos, the block
+    at ``[1:-1, 1:-1]``; ``U_in_ext``: ``(4, Tl+2, Zl+2, Y, Xh, 3, 3)``;
+    ``U_out``: unextended ``(4, Tl, Zl, Y, Xh, 3, 3)``; ``parity_offset``
+    the global ``(t0 + z0) % 2`` of the block origin.  z/t neighbours
+    are slices of the extended arrays; x/y shifts stay in the plane
+    (periodic there, since x and y are never split).
+    """
+    c = src_ext[1:-1, 1:-1]
+    out = torch.zeros_like(c)
+    for mu in range(NDIM):
+        if mu == MU_X:
+            fwd = _masked_roll_x(c, +1, out_parity, parity_offset)
+            bwd = _masked_roll_x(c, -1, out_parity, parity_offset)
+            u_bwd = _masked_roll_x(U_in_ext[0, 1:-1, 1:-1], -1, out_parity,
+                                   parity_offset)
+        elif mu == MU_Y:
+            fwd = torch.roll(c, -1, dims=2)
+            bwd = torch.roll(c, +1, dims=2)
+            u_bwd = torch.roll(U_in_ext[1, 1:-1, 1:-1], +1, dims=2)
+        elif mu == MU_Z:
+            fwd, bwd = src_ext[1:-1, 2:], src_ext[1:-1, :-2]
+            u_bwd = U_in_ext[2, 1:-1, :-2]
+        else:                                  # t
+            fwd, bwd = src_ext[2:, 1:-1], src_ext[:-2, 1:-1]
+            u_bwd = U_in_ext[3, :-2, 1:-1]
+        uh = torch.einsum("...ab,...hb->...ha", U_out[mu],
+                          gamma.project(fwd, mu, s=-1))
+        out = out + gamma.reconstruct(uh, mu, s=-1)
+        uh = torch.einsum("...ba,...hb->...ha", u_bwd.conj(),
+                          gamma.project(bwd, mu, s=+1))
+        out = out + gamma.reconstruct(uh, mu, s=+1)
+    return out

@@ -38,9 +38,18 @@ over a block of sources (BCGrQ).  The CG solvers take a ``project``
 hook, and :func:`_run_krylov` a ``deflation`` basis
 (:mod:`repro_torch.core.deflate`): a Galerkin initial guess plus the
 A-orthogonal projector on every new search direction.
+
+Where a native vector is one rank's block of a distributed lattice,
+every reduction (:func:`_vdot`, :func:`_bvdot`, :func:`_bgram`) sums over
+the ranks before its value is read (:func:`group_reductions`, set by
+:func:`make_native_solve` from ``WilsonOps.group_sum``), so that every
+rank sees the same scalars and takes the same branches: a rank that
+branched apart would wait in its next halo exchange for ever.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Callable, NamedTuple, Optional
 
@@ -52,7 +61,7 @@ __all__ = ["SolveResult", "RefinedResult", "cg", "cgnr", "bicgstab",
            "DEFLATABLE_METHODS", "make_native_solve", "make_refined_solve",
            "resolve_inner_dtype", "ESCALATION_LADDER",
            "COMPENSATED_REDUCTIONS", "STAGNATION_WINDOW", "MAX_RESTARTS",
-           "BLOCKCG_RECOMPUTE_DEFAULT"]
+           "BLOCKCG_RECOMPUTE_DEFAULT", "group_reductions"]
 
 # A residual that makes no new minimum for a full window is stagnating;
 # it gets this many deterministic restarts before the solve stops.
@@ -146,14 +155,37 @@ def _apply_scalar(alpha: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
     return alpha
 
 
+# The sum over the ranks of a distributed solve (None: one rank), for
+# the solve running in this context.
+_GROUP_SUM = contextvars.ContextVar("group_sum", default=None)
+
+
+@contextlib.contextmanager
+def group_reductions(group_sum: Optional[Callable]):
+    """Within the block, every reduction of the solvers is summed over
+    the ranks by ``group_sum`` (a tensor's sum over the group, the same
+    on every rank) before it is read; ``None`` is one rank."""
+    token = _GROUP_SUM.set(group_sum)
+    try:
+        yield
+    finally:
+        _GROUP_SUM.reset(token)
+
+
+def _global(x: torch.Tensor) -> torch.Tensor:
+    """A rank's partial reduction summed over the ranks."""
+    fn = _GROUP_SUM.get()
+    return x if fn is None else fn(x)
+
+
 def _vdot(a: torch.Tensor, b: torch.Tensor):
     """``<a, b>`` as a Python number (complex for complex vectors);
     f32-accumulated for vectors below f32 (naive without compensation:
     bf16 products, rounded before the sum)."""
     a, b = _acc(a), _acc(b)
     if a.dtype in _LOW_PRECISION:
-        return (a.conj() * b).sum().item()
-    return torch.vdot(a.reshape(-1), b.reshape(-1)).item()
+        return _global((a.conj() * b).sum()).item()
+    return _global(torch.vdot(a.reshape(-1), b.reshape(-1))).item()
 
 
 def _norm2(x: torch.Tensor) -> float:
@@ -180,7 +212,7 @@ def _bvdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     device tensor ``(nrhs,)``; f32-accumulated for vectors below f32,
     like :func:`_vdot`."""
     a, b = _acc(a), _acc(b)
-    return (a.conj() * b).reshape(a.shape[0], -1).sum(dim=1)
+    return _global((a.conj() * b).reshape(a.shape[0], -1).sum(dim=1))
 
 
 def _bnorm2(x: torch.Tensor) -> torch.Tensor:
@@ -230,7 +262,8 @@ def _bgram(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Block Gram matrix ``G[i, j] = <a_i, b_j>`` over the leading RHS
     axis, on the device (f32-accumulated for vectors below f32)."""
     a, b = _acc(a), _acc(b)
-    return a.reshape(a.shape[0], -1).conj() @ b.reshape(b.shape[0], -1).T
+    return _global(
+        a.reshape(a.shape[0], -1).conj() @ b.reshape(b.shape[0], -1).T)
 
 
 def _bcomb(coef: torch.Tensor, x: torch.Tensor,
@@ -900,7 +933,8 @@ def make_native_solve(bops, kappa: float, *, method: str = "cgnr",
     Returns ``fn(v_e, v_o) -> (x, v_xi_o, SolveResult)`` on native
     vectors of ``bops`` (with a leading RHS axis and the ``*_batched``
     operators when ``batched``): the Eq. (4) right-hand side, the Krylov
-    solve and the Eq. (5) odd reconstruction.  ``deflated`` returns
+    solve and the Eq. (5) odd reconstruction; the Krylov reductions are
+    summed over the ranks by ``bops.group_sum``.  ``deflated`` returns
     ``fn(v_e, v_o, basis)`` instead: the deflation basis is an argument,
     so a recycle basis that grows between solves needs no rebuild.
     """
@@ -916,12 +950,14 @@ def make_native_solve(bops, kappa: float, *, method: str = "cgnr",
     def solve_native(v_e, v_o, deflation=None):
         # RHS of Eq. (4): eta_e + kappa * H_eo eta_o  (D_eo = -kappa H_eo).
         rhs = v_e + kappa * hop_eo(v_o)
-        res = _run_krylov(
-            method, lambda v: dhat(v, kappa), lambda v: dhat_dag(v, kappa),
-            rhs, batched=batched, deflation=deflation, tol=tol,
-            max_iters=max_iters, recompute_every=recompute_every,
-            guard=guard, stagnation_window=stagnation_window,
-            max_restarts=max_restarts)
+        with group_reductions(bops.group_sum):
+            res = _run_krylov(
+                method, lambda v: dhat(v, kappa),
+                lambda v: dhat_dag(v, kappa), rhs, batched=batched,
+                deflation=deflation, tol=tol, max_iters=max_iters,
+                recompute_every=recompute_every, guard=guard,
+                stagnation_window=stagnation_window,
+                max_restarts=max_restarts)
         # Eq. (5): xi_o = eta_o + kappa * H_oe xi_e.
         v_xi_o = v_o + kappa * hop_oe(res.x)
         return res.x, v_xi_o, res

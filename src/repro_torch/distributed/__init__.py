@@ -1,8 +1,13 @@
-"""Domain decomposition of the port: for now only the boundary-slab
-index of :mod:`repro_torch.distributed.halo`, which the halo fault
-injector needs."""
+"""Domain decomposition of the port: the lattice split over t and z
+between the ranks of a ``torch.distributed`` group, with halo exchange
+(:mod:`.halo`) and the distributed even-odd operator in the reference's
+three overlap modes (:mod:`.qcd`)."""
 from __future__ import annotations
 
+from . import halo, qcd
 from .halo import boundary_slab_index
+from .qcd import (QCDPartition, make_dhat_dagger_fn, make_dhat_fn,
+                  make_hop_fn)
 
-__all__ = ["boundary_slab_index"]
+__all__ = ["halo", "qcd", "QCDPartition", "make_dhat_fn",
+           "make_dhat_dagger_fn", "make_hop_fn", "boundary_slab_index"]

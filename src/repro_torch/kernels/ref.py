@@ -6,7 +6,10 @@ the same projection, SU(3) multiply and reconstruction arithmetic, in
 the same order, on whole ``(T, Z, Y, Xh)`` planes instead of one site
 per thread.
 ``dhat_planar_stream_ref`` walks kernel B3's produce/consume schedule
-over its ring of t-rows with the same per-row arithmetic.  The
+over its ring of t-rows with the same per-row arithmetic.
+``hop_block_ext_planar`` is the complex oracle of the halo mode: the
+planar fields through :func:`repro_torch.core.evenodd.hop_block_ext`
+and back (the reference's ``hop_block_ext_planar``).  The
 kernel wrappers in :mod:`repro_torch.kernels.wilson_stencil` run these on
 CPU tensors; ``chip_smoke.py`` holds the kernels against them on the
 card.
@@ -24,11 +27,13 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core import evenodd
 from .layout import (GAUGE_COMPS, SPINOR_COMPS, expand_links_planes,
-                     gauge_expand_planar)
+                     gauge_expand_planar, gauge_from_planar,
+                     spinor_from_planar, spinor_to_planar)
 
 __all__ = ["hop_block_planar_ref", "dhat_planar_ref",
-           "dhat_planar_stream_ref"]
+           "dhat_planar_stream_ref", "hop_block_ext_planar"]
 
 
 def _links_f32(u: torch.Tensor) -> torch.Tensor:
@@ -304,3 +309,21 @@ def dhat_planar_stream_ref(u_e_p: torch.Tensor, u_o_p: torch.Tensor,
             # copy_ rounds a bf16 result once (to nearest even).
             out.narrow(-5, t, 1).copy_(psi0 + (-k2) * hop)
     return out
+
+
+def hop_block_ext_planar(u_out_p: torch.Tensor, u_in_ext_p: torch.Tensor,
+                         src_ext_p: torch.Tensor, out_parity: int,
+                         parity_offset: int = 0) -> torch.Tensor:
+    """Halo-extended hopping block with planar fields in and out, through
+    complex arithmetic (:func:`repro_torch.core.evenodd.hop_block_ext`).
+
+    ``src_ext_p``: ``(Tl+2, Zl+2, 24, Y, Xh)``; ``u_in_ext_p``: ``(4,
+    Tl+2, Zl+2, gc, Y, Xh)``; ``u_out_p``: ``(4, Tl, Zl, gc, Y, Xh)``;
+    ``parity_offset`` the global ``(t0 + z0) % 2`` of the block origin.
+    One source: the caller maps a batch over its leading axis.
+    """
+    out = evenodd.hop_block_ext(gauge_from_planar(u_out_p),
+                                gauge_from_planar(u_in_ext_p),
+                                spinor_from_planar(src_ext_p), out_parity,
+                                parity_offset=parity_offset)
+    return spinor_to_planar(out, dtype=src_ext_p.dtype)

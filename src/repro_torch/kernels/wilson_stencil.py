@@ -24,8 +24,9 @@ CUDA tensor launches the kernel or raises.  The kernels take float32,
 float64 and bfloat16 fields; bf16 is stored in bf16 (scratch and ring
 included) and computed in f32 registers, each stored tensor rounded
 once.  Another dtype raises ``TypeError``; nothing is upcast.
-:data:`LAUNCHES` counts kernel launches per wrapper (plain-version calls
-are not counted).
+:data:`LAUNCHES` counts kernel launches per wrapper, and
+:data:`B1_MODE_LAUNCHES` B1's launches by mode (periodic or halo);
+plain-version calls are not counted.
 """
 from __future__ import annotations
 
@@ -46,7 +47,8 @@ __all__ = ["hop_block_planar", "dhat_planar_fused",
            "dhat_planar_fused_stream", "hop_traffic_model",
            "dhat_stream_traffic_model", "stream_ring_bytes",
            "STREAM_WINDOW_ROWS", "STREAM_RING_ROWS", "HOP_FLOPS_PER_SITE",
-           "LAUNCHES", "reset_launch_counts", "stream_flags"]
+           "LAUNCHES", "B1_MODE_LAUNCHES", "reset_launch_counts",
+           "stream_flags"]
 
 # Flops per lattice site of one hopping block application, QXS convention.
 HOP_FLOPS_PER_SITE = 1320
@@ -65,6 +67,8 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
 #: kernel launches per wrapper since the last :func:`reset_launch_counts`
 LAUNCHES = {"hop_block_planar": 0, "dhat_planar_fused": 0,
             "dhat_planar_fused_stream": 0}
+#: B1's launches (``LAUNCHES["hop_block_planar"]``) split by mode
+B1_MODE_LAUNCHES = {"periodic": 0, "halo": 0}
 
 # Ring rows of odd-intermediate t-planes of the streaming kernel B3: 3
 # live rows cover the +-t reach of the second hopping block, +1 is the
@@ -80,8 +84,9 @@ STREAM_RING_ROWS = 8
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, B1_MODE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def hop_traffic_model(Tl: int, Zl: int, Y: int, Xh: int, *,
@@ -256,6 +261,7 @@ def hop_block_planar(u_out_p: torch.Tensor, u_in_p: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"wilson_hop_launch failed: CUDA error {rc}")
     LAUNCHES["hop_block_planar"] += 1
+    B1_MODE_LAUNCHES["halo" if halo else "periodic"] += 1
     return out
 
 

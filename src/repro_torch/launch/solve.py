@@ -14,6 +14,10 @@
         --deflate-rank 24 --deflate-iters 200           # Lanczos deflation
     PYTHONPATH=src python -m repro_torch.launch.solve \
         --validate repair --fallback                    # audit, degrade
+    PYTHONPATH=src python -m repro_torch.launch.solve \
+        --backend distributed --overlap interior        # one rank
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.solve \
+        --backend distributed --device cpu              # 4 ranks, gloo
 
 The arguments become one ``(LatticeSpec, BackendSpec, SolveSpec)``; the
 random gauge field is bound once into a :class:`repro_torch.api.
@@ -38,19 +42,28 @@ saves each solve's ``(xi_e, xi_o)`` there
 ``gauge audit:`` line; ``--fallback`` lets a failing backend degrade
 down its declared chain (a ``DEGRADED:`` line at bind, ``fallbacks=``
 and ``degraded=`` on the session line).
+``--backend distributed`` splits the lattice over t between the ranks
+(``--overlap fused|interior|split``, ``on``/``off`` for
+``interior``/``fused``): under ``torchrun`` (``WORLD_SIZE`` set) every
+rank joins one group, NCCL on ``cuda:LOCAL_RANK`` or gloo with
+``--device cpu``, and only rank 0 prints; without it there is one rank
+and no group.
 ``--backend auto`` is ``cuda_fused`` on ``cuda`` and ``torch_ref`` on
 ``cpu``; ``--backend help`` lists the registry and exits.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from .. import api, backends, configs, resolve_device
 from ..checkpoint import Checkpointer
 from ..core import evenodd, solver, su3, wilson
+from ..distributed import qcd
 from ..kernels import wilson_stencil
 
 
@@ -73,8 +86,9 @@ def main(argv=None):
     and full-lattice residual (the most of any column) and their
     per-column lists (``col_iterations``,
     ``col_residuals``), the full-lattice solutions, kernel launches of
-    this run, session stats, and for a refined solve ``results`` (each
-    solve's :class:`repro_torch.core.solver.RefinedResult`)."""
+    this run (``b1_modes``: B1's by mode), session stats, and for a
+    refined solve ``results`` (each solve's
+    :class:`repro_torch.core.solver.RefinedResult`)."""
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.solve")
     ap.add_argument("--lattice", default="wilson-16x16x16x16",
                     choices=sorted(configs.QCD_CONFIGS))
@@ -87,6 +101,13 @@ def main(argv=None):
                     help="operator backend (registry name); 'auto' is "
                          "cuda_fused on cuda and torch_ref on cpu; 'help' "
                          "lists the registry and exits")
+    ap.add_argument("--overlap", default="",
+                    choices=["", "fused", "split", "interior", "on", "off"],
+                    help="distributed backend's halo schedule: 'interior' "
+                         "(alias 'on') overlaps the exchange with the "
+                         "interior stencil, 'fused' (alias 'off') exchanges "
+                         "first, 'split' recomputes the boundary over a "
+                         "periodic bulk; only with --backend distributed")
     ap.add_argument("--gauge-compression", default="none",
                     choices=["none", "two_row", "minimal"],
                     help="stored SU(3) link representation of the planar "
@@ -145,16 +166,42 @@ def main(argv=None):
         return None
 
     device = resolve_device(args.device)
+    bname = api.BackendSpec(name=args.backend).resolve_name(device)
+    opts = ()
+    if args.overlap:
+        if bname != "distributed":
+            ap.error("--overlap only applies to --backend distributed")
+        opts = (("overlap", qcd.normalize_overlap(
+            {"on": True, "off": False}.get(args.overlap, args.overlap))),)
+    group = None
+    if "WORLD_SIZE" in os.environ:        # under torchrun: one group
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+            torch.cuda.set_device(device)
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+        group = dist.group.WORLD
+    try:
+        return _run(args, ap, device, bname, opts, group)
+    finally:
+        if group is not None:
+            dist.destroy_process_group()
+
+
+def _run(args, ap, device, bname, opts, group):
+    rank = 0 if group is None else dist.get_rank(group)
+
+    say = print if rank == 0 else (lambda *a, **kw: None)
+
     lattice = api.LatticeSpec(configs.get_qcd(args.lattice).shape)
     inner_dtype = args.inner_dtype or None
     # A refined solve's bound matrix is its inner backend: bind it at the
     # inner dtype (torch_ref has no dtype knob; its inner solves run at
     # the gauge's complex64).
-    bname = api.BackendSpec(name=args.backend).resolve_name(device)
     takes_dtype = bool(backends.backend_info(bname).dtypes)
     bspec = api.BackendSpec(
         name=bname, dtype=inner_dtype if takes_dtype else None,
-        gauge_compression=args.gauge_compression).validated(device)
+        gauge_compression=args.gauge_compression,
+        opts=opts).validated(device)
     if args.nrhs < 1:
         ap.error(f"--nrhs must be >= 1; got {args.nrhs}")
     nrhs = args.nrhs
@@ -167,33 +214,38 @@ def main(argv=None):
                           deflate_mode=args.deflate_mode,
                           deflate_iters=args.deflate_iters or None)
     T, Z, Y, X = lattice.extents
-    print(f"lattice {lattice.extents}, kappa={args.kappa}, nrhs={nrhs}, "
-          f"device={device}"
-          + (f", inner_dtype={inner_dtype}, inner_tol={args.inner_tol:g}"
+    say(f"lattice {lattice.extents}, kappa={args.kappa}, nrhs={nrhs}, "
+        f"device={device}"
+        + (f", inner_dtype={inner_dtype}, inner_tol={args.inner_tol:g}"
              if inner_dtype else ""), flush=True)
 
     gen = torch.Generator().manual_seed(args.seed)
     U = su3.random_gauge(gen, lattice.extents, device=device)
     U_e, U_o = evenodd.pack_gauge(U)
     # Bind once: layout conversion and policy happen here.
+    bind_opts = ({"partition": qcd.QCDPartition(group=group)}
+                 if bname == "distributed" else {})
     matrix = api.WilsonMatrix.bind(U_e, U_o, args.kappa, backend=bspec,
                                    validate=args.validate,
-                                   fallback=args.fallback)
+                                   fallback=args.fallback, **bind_opts)
     session = api.SolveSession(matrix, sspec)
-    print(f"backend {matrix.backend.name} (native domain: "
-          f"{matrix.domain})", flush=True)
+    say(f"backend {matrix.backend.name} (native domain: "
+        f"{matrix.domain})", flush=True)
     if args.validate != "none":
-        print(f"gauge audit: {matrix.gauge_audit}")
+        say(f"gauge audit: {matrix.gauge_audit}")
     if matrix.degraded:
-        print(f"DEGRADED: requested {matrix.requested_backend}, running "
-              f"{matrix.backend.name}; events={matrix.fallback_events}")
+        say(f"DEGRADED: requested {matrix.requested_backend}, running "
+            f"{matrix.backend.name}; events={matrix.fallback_events}")
 
     # A refined solve iterates its solution in f64: the sources, the
     # solutions and the full-lattice check are complex128.
     cdtype = torch.complex128 if inner_dtype else torch.complex64
     U_check = U.to(cdtype)
-    ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
+    # Every rank holds the global solution: rank 0 alone saves it.
+    ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir and rank == 0 \
+        else None
     launches0 = dict(wilson_stencil.LAUNCHES)
+    modes0 = dict(wilson_stencil.B1_MODE_LAUNCHES)
     eta_gen = torch.Generator().manual_seed(args.seed + 100)
     iterations, residuals, solutions, results = [], [], [], []
     col_iterations, col_residuals = [], []
@@ -234,7 +286,7 @@ def main(argv=None):
         if nrhs > 1:
             line += (f"\n  per column: iters={its} rel=["
                      + ", ".join(f"{r:.2e}" for r in rels) + "]")
-        print(line, flush=True)
+        say(line, flush=True)
         iterations.append(max(its))
         residuals.append(max(rels))
         col_iterations.append(its)
@@ -259,24 +311,28 @@ def main(argv=None):
             d = row["deflation"]
             counts += (f" deflation={d['mode']}:{d['filled']}/{d['rank']}"
                        f" active={d['active']}")
-        print(f"session[{keystr}]: solves={row['solves']} "
-              f"first={row['first_solve_s']:.3f}s steady={steady} "
-              + counts)
-    print(f"session: solves={st['solves']} traces={st['traces']} "
-          f"cache_hits={st['cache_hits']} "
-          f"cache_misses={st['cache_misses']} "
-          f"fallbacks={st['fallbacks']} degraded={st['degraded']}")
+        say(f"session[{keystr}]: solves={row['solves']} "
+            f"first={row['first_solve_s']:.3f}s steady={steady} "
+            + counts)
+    say(f"session: solves={st['solves']} traces={st['traces']} "
+        f"cache_hits={st['cache_hits']} "
+        f"cache_misses={st['cache_misses']} "
+        f"fallbacks={st['fallbacks']} degraded={st['degraded']}")
     launches = {k: v - launches0[k]
                 for k, v in wilson_stencil.LAUNCHES.items()}
-    print("kernel launches: " + " ".join(
-        f"{k}={v}" for k, v in launches.items()))
-    print("done", flush=True)
+    b1_modes = {k: v - modes0[k]
+                for k, v in wilson_stencil.B1_MODE_LAUNCHES.items()}
+    say("kernel launches: " + " ".join(
+        f"{k}={v}" for k, v in launches.items())
+        + f" (hop_block_planar periodic={b1_modes['periodic']} "
+        f"halo={b1_modes['halo']})")
+    say("done", flush=True)
     return {"backend": session.matrix.backend.name,
             "domain": session.matrix.domain,
             "nrhs": nrhs, "iterations": iterations, "residuals": residuals,
             "col_iterations": col_iterations,
             "col_residuals": col_residuals, "solutions": solutions,
-            "launches": launches, "stats": st,
+            "launches": launches, "b1_modes": b1_modes, "stats": st,
             **({"results": results} if inner_dtype else {})}
 
 

@@ -3,8 +3,8 @@ plain versions in f32, f64 and bf16, the two-launch Dhat against B2,
 the batched solve through B3, a refined solve with bf16 inner solves,
 Lanczos-deflated cgnr and blockcg on cuda_fused against torch_ref,
 Checkpointer round trips of device tensors, the fallback walks
-cuda_fused -> cuda_hop and cuda_hop -> torch_ref, and the gauge repair,
-on the card.
+cuda_fused -> cuda_hop and cuda_hop -> torch_ref, the gauge repair, and
+the distributed operator at one rank against cuda_hop, on the card.
 
 These tests need a GPU (marker ``cuda``) and skip without one, deciding
 in the ``cuda`` fixture; they import neither JAX
@@ -74,10 +74,12 @@ def _wrap(a, t_axis):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("mode", ["none", "two_row", "minimal"])
-@pytest.mark.parametrize("shape", [(3, 5, 3, 6), (4, 4, 4, 16)])
+@pytest.mark.parametrize("shape", [(3, 5, 3, 6), (4, 4, 4, 16),
+                                   (1, 8, 16, 16), (8, 1, 16, 16)])
 def test_hop_kernel_halo_mode_matches_plain(cuda, dtype, mode, shape):
     """Halo mode on extended arrays with random halos against its plain
-    version (per-real link copies at Xh = 3, 16-byte ones at Xh = 8),
+    version (per-real link copies at Xh = 3, 16-byte ones at Xh = 8; the
+    thin t-row and z-column slabs of the distributed boundary passes),
     and periodic mode against halo mode on wrap-extended arrays, bit for
     bit."""
     T, Z, Y, X = shape
@@ -479,3 +481,34 @@ def test_repair_gauge_on_the_card_matches_cpu(cuda):
     for g, w in zip(got[:2], want[:2]):
         assert g.device.type == "cuda"
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=5e-5)
+
+
+@pytest.mark.parametrize("nrhs", [1, 3])
+def test_one_rank_distributed_dhat_against_cuda_hop(cuda, nrhs):
+    """At one rank the fused distributed ``Dhat`` (two B1 launches in
+    halo mode on wrap-extended arrays) equals ``cuda_hop``'s two-launch
+    ``Dhat`` bit for bit; interior (10 halo launches) and split (8 halo
+    + 2 periodic, one source) lie within 5e-5 of it."""
+    from repro_torch.distributed import qcd
+    gen = torch.Generator().manual_seed(4)
+    U_e, U_o = evenodd.pack_gauge(su3.random_gauge(gen, (8, 8, 8, 8),
+                                                   device=cuda))
+    lead = (nrhs,) if nrhs > 1 else ()
+    psi = torch.randn(lead + (8, 8, 24, 8, 4), generator=gen).to(cuda)
+    want = api.WilsonMatrix.bind(U_e, U_o, KAPPA,
+                                 backend="cuda_hop").apply_native(psi)
+    launches = {"fused": (2, 0), "interior": (10, 0), "split": (8, 2)}
+    for mode, (halo_n, periodic_n) in launches.items():
+        if mode == "split" and nrhs > 1:
+            continue
+        m = api.WilsonMatrix.bind(
+            U_e, U_o, KAPPA, backend="distributed",
+            partition=qcd.QCDPartition(overlap=mode))
+        ws.reset_launch_counts()
+        got = m.apply_native(psi)
+        assert ws.B1_MODE_LAUNCHES == {"halo": halo_n,
+                                       "periodic": periodic_n}
+        if mode == "fused":
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=0, atol=5e-5)
