@@ -109,6 +109,19 @@ Run from a checkout: it builds the CUDA kernels from
    and 12 sources (1 in split), the gathered ``Dhat`` within 5e-5 of
    ``cuda_hop``'s, a cgnr solve per mode within one iteration of one
    process's, and the fused ``Dhat``'s wall time beside its exchanges';
+7g. drives the serving daemon at 16^4 (``serving``, hot gauge, cgnr tol
+   1e-6, every ``Dhat`` counted and every kernel's launches checked
+   exactly): the CLI ``repro_torch.launch.serve --selftest 16`` (HTTP on
+   a loopback port, default policy, cgnr and bicgstab), which must print
+   ``selftest PASS``; then the API with a pool of an ``auto`` and a
+   ``cuda_fused_stream`` entry: three single sources coalesced into
+   bucket 4 (two B1 launches per ``Dhat``), each within 1e-5 of the solo
+   solve and within the residual gate, a lone request in bucket 1 (B2),
+   a 12-column propagator on the stream entry (B3), and a NaN request
+   contained with its batchmates bit-equal to the clean run; then times
+   32 single-source requests submitted at once, submitted one at a time
+   (each a served block of one), and solved one by one through a
+   session;
 8. times the unbatched solve against the batched pipeline with a block
    of one source at wilson-16x16x16x16 (the candidate removal of the
    unbatched solvers), and steady solves under each Dhat policy (two B1
@@ -137,11 +150,10 @@ Run from a checkout: it builds the CUDA kernels from
 
 It exits non-zero at the first failed phase.  The line before the last
 is a JSON object ``{"kernels": [...]}`` (with each kernel's launches on
-the block CG, deflation and resilience paths, and B1's row the 16^4 x
-200 timing, its launches by mode on the distributed path and its slab
-times); the last line is
-``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the
-reference package.
+the block CG, deflation, resilience and serving paths, and B1's row the
+16^4 x 200 timing, its launches by mode on the distributed path and its
+slab times); the last line is ``{"ok": true, "device": {...}}``.  It
+imports nothing of JAX or of the reference package.
 """
 from __future__ import annotations
 
@@ -265,6 +277,10 @@ SLAB_SHAPES = {"slab-1x8x16x16": (1, 8, 16, 16),
                "slab-16x1x16x16": (16, 1, 16, 16)}
 SLAB_POINTS = tuple((name, nrhs, "f32", 18, True) for name in SLAB_SHAPES
                     for nrhs in (1, 12))
+# The serving phase: its lattice (hot gauge, kappa 0.13, cuda_fused auto
+# and cuda_fused_stream), the seed of its gauge and sources, and the
+# requests of its timed runs (single sources, max block 4).
+SERVING_LATTICE, SERVING_SEED, SERVING_TIMED = "wilson-16x16x16x16", 41, 32
 # Published H100 SXM peaks (NVIDIA data sheet, dense, no tensor cores, at
 # the full 700 W power limit): the bound of every kernel is taken at them.
 # bf16 kernels compute in f32 registers, so their operations count at the
@@ -1910,6 +1926,252 @@ def phase_four_ranks(device, backend="gloo"):
     return res
 
 
+def _serving_want(count, stream, batches):
+    """The launches a serving window must have made, from its counted
+    ``Dhat`` applications: on a ``cuda_fused_stream`` entry one B3 launch
+    each; on an ``auto`` entry at SERVING_LATTICE one B2 launch for a
+    single source (a block of one included: its t-rows hold 2048 sites)
+    and two B1 launches for a block; and B1's two hops (the right-hand
+    side and the odd half) per session solve (``batches``)."""
+    single = count.widths.get(1, 0)
+    wide = count.dhats - single
+    return {"hop_block_planar": 2 * batches + (0 if stream else 2 * wide),
+            "dhat_planar_fused": 0 if stream else single,
+            "dhat_planar_fused_stream": count.dhats if stream else 0}
+
+
+def _latency_ms(stamps):
+    """(p50, p99) of a list of seconds, in ms (p99 by the nearest rank)."""
+    walls = sorted(stamps)
+    p99 = walls[min(len(walls) - 1, int(0.99 * len(walls) + 0.5) - 1)]
+    return statistics.median(walls) * 1e3, p99 * 1e3
+
+
+def phase_serving(device):
+    """The serving path at SERVING_LATTICE (hot gauge, kappa 0.13, cgnr
+    tol 1e-6, f32, full links), every ``Dhat`` counted with
+    :class:`DhatCount` and every kernel's launches checked exactly:
+
+    a. the CLI, ``repro_torch.launch.serve.main`` with ``--selftest 16``
+       and the default policy (max block 4, buckets 1, 2, 4; cgnr and
+       bicgstab specs) through HTTP on a loopback port: it must print
+       ``selftest PASS``;
+    b. the API: a pool of an ``auto`` and a ``cuda_fused_stream`` entry
+       under one daemon (max block 12, buckets 1, 2, 4, 12): three single
+       sources coalesce into one batch (bucket 4, two B1 launches per
+       ``Dhat``), each within 1e-5 of the entry's solo solve (B2) and
+       within the full-lattice residual gate; a lone request (bucket 1,
+       B2); a 12-column propagator request on the stream entry (B3); the
+       three sources again with one poisoned by ``nan_spinor_column``:
+       that request diverged, its batchmates bit-equal to the clean run;
+    c. timing, recorded only: SERVING_TIMED single-source requests
+       submitted at once to a warmed daemon (max block 4, linger 2 ms):
+       requests/s, p50 and p99 latency; the same sources submitted one
+       at a time (each a bucket-1 batch, a served block of one); and
+       solved one by one through a session (unbatched).
+
+    Returns the launches of (a) and (b) by kernel, and the timings."""
+    import contextlib
+    import io
+
+    import torch
+
+    from repro_torch import api
+    from repro_torch.core import evenodd, su3
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.resilience import nan_spinor_column
+    from repro_torch.serving import (BatchingPolicy, PropagatorDaemon,
+                                     SessionPool)
+    launches = {"hop_block_planar": 0, "dhat_planar_fused": 0,
+                "dhat_planar_fused_stream": 0}
+
+    def hold(what, count, stream, batches):
+        want = _serving_want(count, stream, batches)
+        check(count.launches == want and count.dhats > 0,
+              f"serving {what}: launches {count.launches} for "
+              f"{count.dhats} Dhat applications (by width "
+              f"{count.widths}) in {batches} solves; expected {want}")
+        for k, v in count.launches.items():
+            launches[k] += v
+        print(f"serving {what}: {count.dhats} Dhat applications (by width "
+              f"{count.widths}) in {batches} solves, launches "
+              f"{count.launches}", flush=True)
+
+    # a. The CLI.
+    argv = ["--lattice", SERVING_LATTICE, "--selftest", "16", "--port", "0"]
+    print(f"serving: python -m repro_torch.launch.serve {' '.join(argv)}",
+          flush=True)
+    buf = io.StringIO()
+    t0 = time.time()
+    with DhatCount() as count, contextlib.redirect_stdout(buf):
+        rc = launch_serve.main(argv)
+    text = buf.getvalue()
+    print(text.rstrip(), flush=True)
+    check(rc == 0 and "selftest PASS" in text,
+          f"serving CLI: exit {rc}, no 'selftest PASS'")
+    summary = json.loads(text[text.index("{"):text.rindex("}") + 1])
+    check(summary["selftest"]["backend"] == "cuda_fused",
+          f"serving CLI: auto resolved to {summary['selftest']['backend']}")
+    hold("CLI", count, False, summary["selftest"]["batches"])
+    print(f"serving CLI: {time.time() - t0:.1f} s", flush=True)
+
+    # b. The API.
+    shape = CHECK_SHAPES[SERVING_LATTICE]
+    gen = torch.Generator().manual_seed(SERVING_SEED)
+    U = su3.random_gauge(gen, shape, device=device)
+    U_e, U_o = evenodd.pack_gauge(U)
+    singles = [_sources(shape, 1, device, gen, torch.complex64)
+               for _ in range(4)]
+    block = _sources(shape, 12, device, gen, torch.complex64)
+    spec = api.SolveSpec(method="cgnr", tol=1e-6)
+    pool = SessionPool()
+    daemon = PropagatorDaemon(pool, BatchingPolicy(
+        max_block=12, linger_s=0.2, buckets=(1, 2, 4, 12)))
+    daemon.register("auto", api.WilsonMatrix.bind(U_e, U_o, KAPPA))
+    daemon.register("stream", api.WilsonMatrix.bind(
+        U_e, U_o, KAPPA, backend="cuda_fused_stream"))
+    check(pool.entry("auto").matrix.backend.name == "cuda_fused",
+          "serving: auto did not resolve to cuda_fused")
+
+    def serve(name, sources):
+        futs = [daemon.submit(name, e, o, spec) for e, o in sources]
+        return [f.result(timeout=600) for f in futs]
+
+    def solves():
+        return sum(pool.entry(n).session.stats()["solves"]
+                   for n in ("auto", "stream"))
+
+    daemon.start()
+    try:
+        n0 = solves()
+        with DhatCount() as count:
+            clean = serve("auto", singles[:3])
+        hold("API coalesced x3", count, False, solves() - n0)
+        check(len({r.stats["batch_id"] for r in clean}) == 1
+              and clean[0].stats["bucket"] == 4,
+              f"serving: three requests did not coalesce into bucket 4: "
+              f"{[r.stats for r in clean]}")
+        n0 = solves()
+        with DhatCount() as count:
+            (lone,) = serve("auto", singles[3:])
+        hold("API bucket 1", count, False, solves() - n0)
+        check(lone.stats["bucket"] == 1, f"serving: lone request rode "
+                                         f"bucket {lone.stats['bucket']}")
+        n0 = solves()
+        with DhatCount() as count:
+            (prop,) = serve("stream", [block])
+        hold("API propagator x12 (stream)", count, True, solves() - n0)
+        poisoned = list(singles[:3])
+        pe, po = poisoned[1]
+        poisoned[1] = (nan_spinor_column(pe[None], 0)[0], po)
+        n0 = solves()
+        with DhatCount() as count:
+            chaos = serve("auto", poisoned)
+        hold("API NaN in a shared batch", count, False, solves() - n0)
+    finally:
+        daemon.drain()
+    undegraded("serving", pool.entry("auto").session,
+               pool.entry("stream").session)
+    solo = api.SolveSession(pool.entry("auto").matrix)
+    rels, diffs = [], []
+    for r, (ee, eo) in zip(clean + [lone], singles):
+        check(r.converged and not r.diverged,
+              f"serving: request {r.stats}")
+        xe, xo, _ = solo.solve(ee, eo, spec)
+        diffs.append(max(float((r.xi_e[0] - xe).abs().max()),
+                         float((r.xi_o[0] - xo).abs().max())))
+        rels.append(_full_residual(U, r.xi_e[0], r.xi_o[0], ee, eo, KAPPA))
+    check(max(diffs) <= 1e-5 and max(rels) <= 1e-5,
+          f"serving: coalesced against solo {diffs} (each <= 1e-5), "
+          f"full-lattice residuals {rels} (each <= 1e-5)")
+    check(prop.converged and prop.stats["bucket"] == 12,
+          f"serving propagator: {prop.stats}")
+    prop_rels = [_full_residual(U, *cols, KAPPA)
+                 for cols in zip(prop.xi_e, prop.xi_o, *block)]
+    check(max(prop_rels) <= 1e-5,
+          f"serving propagator: full-lattice residuals {prop_rels}")
+    check(chaos[1].diverged and not chaos[1].converged
+          and len({r.stats["batch_id"] for r in chaos}) == 1,
+          f"serving NaN: poisoned request {chaos[1].stats}")
+    for j in (0, 2):
+        check(chaos[j].converged and not chaos[j].diverged
+              and torch.equal(chaos[j].xi_e, clean[j].xi_e)
+              and torch.equal(chaos[j].xi_o, clean[j].xi_o),
+              f"serving NaN: batchmate {j} not bit-equal to the clean run")
+    print(f"serving API: coalesced x3 iterations "
+          f"{[r.stats['iterations'][0] for r in clean]}, lone "
+          f"{lone.stats['iterations']}, propagator x12 "
+          f"{prop.stats['iterations']}; coalesced/lone against solo "
+          f"{max(diffs):.3e}, full-lattice residuals {max(rels):.2e}, "
+          f"propagator {max(prop_rels):.2e}; NaN request diverged, "
+          f"batchmates bit-equal", flush=True)
+
+    # c. Timing.
+    timed_src = [_sources(shape, 1, device, gen, torch.complex64)
+                 for _ in range(SERVING_TIMED)]
+    matrix = pool.entry("auto").matrix
+    times = {}
+    for label, linger in (("at once", 0.002), ("one at a time", 0.0)):
+        d = PropagatorDaemon(SessionPool(), BatchingPolicy(
+            max_block=4, linger_s=linger, buckets=(1, 2, 4)))
+        d.register("auto", matrix, warmup_spec=spec)
+        lat = []
+        d.start()
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if label == "at once":
+                subs, done = [], {}
+                for i, (ee, eo) in enumerate(timed_src):
+                    subs.append(time.perf_counter())
+                    f = d.submit("auto", ee, eo, spec)
+                    f.add_done_callback(
+                        lambda _, i=i: done.__setitem__(
+                            i, time.perf_counter()))
+                    subs.append(f)
+                for f in subs[1::2]:
+                    f.result(timeout=600)
+                lat = [done[i] - ts for i, ts in enumerate(subs[::2])]
+            else:
+                for ee, eo in timed_src:
+                    ts = time.perf_counter()
+                    f = d.submit("auto", ee, eo, spec)
+                    f.result(timeout=600)
+                    lat.append(time.perf_counter() - ts)
+            wall = time.perf_counter() - t0
+        finally:
+            d.drain()
+        m = d.metrics()
+        p50, p99 = _latency_ms(lat)
+        times[label] = {"requests_per_s": SERVING_TIMED / wall,
+                        "wall_s": wall, "p50_ms": p50, "p99_ms": p99,
+                        "batches": m["batches"],
+                        "mean_batch_columns": m["mean_batch_columns"]}
+    sess = api.SolveSession(matrix, spec)
+    sess.solve(*timed_src[0])
+    lat = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for ee, eo in timed_src:
+        ts = time.perf_counter()
+        sess.solve(ee, eo)
+        lat.append(time.perf_counter() - ts)
+    wall = time.perf_counter() - t0
+    p50, p99 = _latency_ms(lat)
+    times["session one by one"] = {
+        "requests_per_s": SERVING_TIMED / wall, "wall_s": wall,
+        "p50_ms": p50, "p99_ms": p99}
+    for label, t in times.items():
+        print(f"serving times: {SERVING_TIMED} requests {label} "
+              f"({SERVING_LATTICE}, cgnr tol 1e-6, cuda_fused auto): "
+              f"{t['requests_per_s']:.1f} requests/s, wall "
+              f"{t['wall_s'] * 1e3:.2f} ms, latency p50 "
+              f"{t['p50_ms']:.2f} ms p99 {t['p99_ms']:.2f} ms"
+              + (f", {t['batches']} batches of {t['mean_batch_columns']:.2f}"
+                 f" columns" if "batches" in t else ""), flush=True)
+    return {"launches": launches, "times": times}
+
+
 def phase_distributed_times(device, n_solves=6):
     """Steady cgnr solves (tol 1e-6) at one rank in each overlap mode
     beside ``cuda_hop`` at 16^4 x 1 and x 12, sessions alternating; and
@@ -2505,6 +2767,7 @@ def main(argv=None):
     timed("policy_solves", phase_policy_solves, device)
     distributed = timed("distributed", phase_distributed, device)
     timed("four_ranks", phase_four_ranks, device)
+    serving = timed("serving", phase_serving, device)
     copy_bps = copy_bandwidth(device)
     print(f"copy bandwidth: {copy_bps / 1e9:.0f} GB/s (device-to-device"
           f" copy, read + write; the bounds use the 3.35 TB/s peak)",
@@ -2614,6 +2877,12 @@ def main(argv=None):
         row["launches_resilience"] = resilience["launches"][row["name"]]
         check(row["launches_resilience"] > 0,
               f"{row['name']} made no launch on the resilience path")
+    # The serving path (the CLI selftest and the API runs): each kernel's
+    # launches there.
+    for row in kernels:
+        row["launches_serving"] = serving["launches"][row["name"]]
+        check(row["launches_serving"] > 0,
+              f"{row['name']} made no launch on the serving path")
     print(f"total: {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

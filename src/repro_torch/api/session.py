@@ -258,7 +258,9 @@ class SolveSession:
         is the backend the session runs now; ``degraded`` and
         ``fallback_events`` are its matrix's."""
         keys = {}
-        for (spec, shape, dtype), entry in self._cache.items():
+        # A snapshot: a serving front end reads stats from another
+        # thread while the dispatcher adds keys.
+        for (spec, shape, dtype), entry in list(self._cache.items()):
             steady = sorted(entry.times[1:])
             key = "|".join([spec.cache_token(), f"shape={shape}",
                             f"dtype={dtype}"])

@@ -7,6 +7,9 @@ All sources compile in parallel, one ``nvcc`` each.  Libraries land in
 ``build/repro_torch_kernels/`` at the repository root, named by a hash
 of their sources and flags, so an edited source rebuilds and an
 unchanged one loads at once.  Nothing is compiled at import time.
+:func:`load` and :func:`build_all` hold one lock, so threads of one
+process (a serving daemon's dispatcher and its front end) build each
+library once and never share a temporary file.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict
@@ -62,6 +66,9 @@ ARGTYPES = {
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# Held by load and build_all: the temporary file of a build is named by
+# the pid, which the threads of a process share.
+_LOCK = threading.Lock()
 
 
 def build_dir() -> Path:
@@ -96,6 +103,11 @@ def build_all(verbose: bool = False) -> Dict[str, dict]:
     library that was already built); raises ``RuntimeError`` with the
     compiler's output if any build fails.
     """
+    with _LOCK:
+        return _build_all(verbose)
+
+
+def _build_all(verbose: bool) -> Dict[str, dict]:
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -137,14 +149,18 @@ def load(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is not None:
         return lib
-    path = _lib_path(name)
-    if not path.exists():
-        build_all()
-    lib = ctypes.CDLL(str(path))
-    for fn_name, argtypes in ARGTYPES.items():
-        if fn_name.startswith(f"{name}_"):
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-    _loaded[name] = lib
-    return lib
+    with _LOCK:
+        lib = _loaded.get(name)
+        if lib is not None:
+            return lib
+        path = _lib_path(name)
+        if not path.exists():
+            _build_all(False)
+        lib = ctypes.CDLL(str(path))
+        for fn_name, argtypes in ARGTYPES.items():
+            if fn_name.startswith(f"{name}_"):
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        _loaded[name] = lib
+        return lib

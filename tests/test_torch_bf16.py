@@ -25,6 +25,7 @@ from repro.core import evenodd as jeo
 from repro.kernels import layout as jlayout, wilson_stencil as jstencil
 from repro_torch import convert
 from repro_torch.kernels import layout, ref, wilson_stencil as ws
+from torch_threads import one_torch_thread  # noqa: F401
 
 SHAPE = (4, 4, 4, 8)
 MODES = {18: "none", 12: "two_row", 8: "minimal"}

@@ -22,6 +22,7 @@ from repro.core import evenodd as jeo, solver as jsolver
 from repro_torch import api, convert
 from repro_torch.core import solver
 from repro_torch.launch import solve as launch_solve
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL32 = 5e-5
 KAPPA = 0.13

@@ -20,6 +20,7 @@ from repro_torch import api
 from repro_torch.checkpoint import Checkpointer
 from repro_torch.core import deflate, evenodd, solver, su3
 from repro_torch.resilience import BasisSnapshot, RefinementSnapshot
+from torch_threads import one_torch_thread  # noqa: F401
 
 SHAPE = (4, 4, 4, 8)
 

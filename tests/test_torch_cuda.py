@@ -3,8 +3,9 @@ plain versions in f32, f64 and bf16, the two-launch Dhat against B2,
 the batched solve through B3, a refined solve with bf16 inner solves,
 Lanczos-deflated cgnr and blockcg on cuda_fused against torch_ref,
 Checkpointer round trips of device tensors, the fallback walks
-cuda_fused -> cuda_hop and cuda_hop -> torch_ref, the gauge repair, and
-the distributed operator at one rank against cuda_hop, on the card.
+cuda_fused -> cuda_hop and cuda_hop -> torch_ref, the gauge repair, the
+distributed operator at one rank against cuda_hop, and a batch served by
+the daemon on cuda_fused against torch_ref, on the card.
 
 These tests need a GPU (marker ``cuda``) and skip without one, deciding
 in the ``cuda`` fixture; they import neither JAX
@@ -512,3 +513,43 @@ def test_one_rank_distributed_dhat_against_cuda_hop(cuda, nrhs):
             assert torch.equal(got, want)
         else:
             torch.testing.assert_close(got, want, rtol=0, atol=5e-5)
+
+
+def test_served_batch_on_cuda_fused_matches_torch_ref(cuda):
+    """Three single-source requests served by the daemon as one padded
+    batch (bucket 4) at 8^4 on ``cuda_fused`` (two B1 launches per
+    ``Dhat``) agree with the same batch served on ``torch_ref`` on the
+    card within 1e-4 (the batched parity tolerance of the CPU tests),
+    each within the full-lattice residual gate, answers on the card."""
+    from repro_torch.serving import BatchingPolicy, PropagatorDaemon
+    U, U_e, U_o, _, _, _ = _problem_8(cuda)
+    gen = torch.Generator().manual_seed(15)
+    etas = [torch.complex(torch.randn((8, 8, 8, 8, 4, 3), generator=gen),
+                          torch.randn((8, 8, 8, 8, 4, 3), generator=gen)
+                          ).to(cuda) for _ in range(3)]
+    spec = api.SolveSpec(method="cgnr", tol=1e-6)
+    served = {}
+    for backend in ("cuda_fused", "torch_ref"):
+        d = PropagatorDaemon(batching=BatchingPolicy(
+            max_block=4, linger_s=0.2, buckets=(1, 2, 4)))
+        d.register("cfg", api.WilsonMatrix.bind(U_e, U_o, KAPPA,
+                                                backend=backend))
+        ws.reset_launch_counts()
+        with d:
+            futs = [d.submit("cfg", *evenodd.pack(eta), spec)
+                    for eta in etas]
+            served[backend] = [f.result(timeout=300) for f in futs]
+        torch.cuda.synchronize()
+        launched = dict(ws.LAUNCHES)
+        if backend == "cuda_fused":
+            assert launched["hop_block_planar"] > 0
+            assert launched["dhat_planar_fused"] == 0
+        else:
+            assert sum(launched.values()) == 0
+    for got, want, eta in zip(served["cuda_fused"], served["torch_ref"],
+                              etas):
+        assert got.stats["bucket"] == 4 and got.converged
+        assert got.xi_e.device.type == "cuda"
+        torch.testing.assert_close(got.xi_e, want.xi_e, rtol=0, atol=1e-4)
+        torch.testing.assert_close(got.xi_o, want.xi_o, rtol=0, atol=1e-4)
+        assert _full_rel(U, eta, got.xi_e[0], got.xi_o[0]) <= 1e-5

@@ -31,6 +31,7 @@ from repro_torch import api, convert
 from repro_torch.core import deflate, evenodd, solver, su3
 from repro_torch.launch import solve as launch_solve
 from repro_torch.resilience import BasisSnapshot
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 ATOL = {torch.float32: 5e-5, torch.float64: 1e-10}

@@ -30,6 +30,7 @@ from repro_torch.distributed import halo, qcd
 from repro_torch.kernels import geometry, layout, ref
 from repro_torch.launch import solve as launch_solve
 from repro_torch.resilience import break_ops, fallback_chain
+from torch_threads import one_torch_thread  # noqa: F401
 
 SHAPE = (8, 8, 4, 8)
 KAPPA = torch_dist_worker.KAPPA

@@ -18,6 +18,7 @@ from repro.kernels import layout as jlayout
 from repro_torch import convert
 from repro_torch.core import evenodd, gamma, su3, wilson
 from repro_torch.kernels import layout, ref
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL_F32 = 5e-5
 ATOL_F64 = 1e-10

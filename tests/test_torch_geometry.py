@@ -14,6 +14,7 @@ import pytest
 
 from repro_torch.kernels import geometry as geo
 from repro_torch.kernels import wilson_stencil as ws
+from torch_threads import one_torch_thread  # noqa: F401
 
 # (Z, Y, Xh): the main lattices' rows and ragged ones (Y*Xh and Z not
 # multiples of the tile).

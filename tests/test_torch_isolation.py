@@ -40,7 +40,8 @@ def test_no_jax_or_reference_import(path):
 
 
 def test_importing_the_cli_loads_neither_jax_nor_repro():
-    code = ("import repro_torch.launch.solve, sys; "
+    code = ("import repro_torch.launch.solve, repro_torch.launch.serve, "
+            "sys; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')); "
             "assert not bad, bad")

@@ -20,6 +20,7 @@ from repro.kernels import layout as jlayout, wilson_stencil as jstencil
 from repro_torch import convert
 from repro_torch.core import evenodd
 from repro_torch.kernels import layout, ops, ref, wilson_stencil as ws
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL_F32 = 5e-5
 KAPPA = 0.13

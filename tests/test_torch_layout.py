@@ -15,6 +15,7 @@ from repro.core import evenodd
 from repro.kernels import layout as jlayout
 from repro_torch import convert
 from repro_torch.kernels import layout
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL_F32 = 5e-5          # tests/test_parity_matrix.py:46
 SHAPES = [(4, 4, 4, 8), (3, 5, 3, 6)]

@@ -28,6 +28,7 @@ from repro_torch import api, convert
 from repro_torch.core import evenodd, solver
 from repro_torch.launch import solve as launch_solve
 from repro_torch.resilience import dead_inner_ops
+from torch_threads import one_torch_thread  # noqa: F401
 
 SHAPE = (4, 4, 4, 8)
 KAPPA = 0.13

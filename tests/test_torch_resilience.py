@@ -32,6 +32,7 @@ from repro_torch.resilience import (GaugeAuditReport, InjectedFault,
                                     fallback_chain, nan_operator,
                                     nan_spinor_column, repair_gauge,
                                     stagnating_system)
+from torch_threads import one_torch_thread  # noqa: F401
 
 KAPPA = 0.12
 SHAPE = (4, 4, 4, 8)

@@ -18,6 +18,7 @@ from repro_torch import api, convert, resolve_device
 from repro_torch.core import solver
 from repro_torch.kernels import wilson_stencil as ws
 from repro_torch.launch import solve as launch_solve
+from torch_threads import one_torch_thread  # noqa: F401
 
 KAPPA = 0.13
 SHAPE = (4, 4, 4, 8)

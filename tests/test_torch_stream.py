@@ -17,6 +17,7 @@ from repro.core import evenodd as jeo
 from repro.kernels import layout as jlayout, wilson_stencil as jstencil
 from repro_torch import convert
 from repro_torch.kernels import ops, ref, wilson_stencil as ws
+from torch_threads import one_torch_thread  # noqa: F401
 
 ATOL_F32 = 5e-5
 KAPPA = 0.13
