@@ -109,6 +109,15 @@ Run from a checkout: it builds the CUDA kernels from
    and 12 sources (1 in split), the gathered ``Dhat`` within 5e-5 of
    ``cuda_hop``'s, a cgnr solve per mode within one iteration of one
    process's, and the fused ``Dhat``'s wall time beside its exchanges';
+   then, on the same four ranks, block CG x 12 (interior), undeflated,
+   Lanczos-deflated (rank 24, 100 steps) and recycle cgnr on the weak
+   gauge (fused, 4 sources each) and refined f32 and bf16 solves to
+   1e-10 with 1 and 12 sources (fused), each held to the same solve in
+   one process on ``cuda_hop`` (iterations within one, two for
+   Lanczos; outer passes equal) and to its residual gates, every B1
+   launch counted exactly (halo mode, none periodic), each path's
+   launches per solve and wall time printed beside the card's name and
+   power limit;
 7g. drives the serving daemon at 16^4 (``serving``, hot gauge, cgnr tol
    1e-6, every ``Dhat`` counted and every kernel's launches checked
    exactly): the CLI ``repro_torch.launch.serve --selftest 16`` (HTTP on
@@ -151,9 +160,10 @@ Run from a checkout: it builds the CUDA kernels from
 It exits non-zero at the first failed phase.  The line before the last
 is a JSON object ``{"kernels": [...]}`` (with each kernel's launches on
 the block CG, deflation, resilience and serving paths, and B1's row the
-16^4 x 200 timing, its launches by mode on the distributed path and its
-slab times); the last line is ``{"ok": true, "device": {...}}``.  It
-imports nothing of JAX or of the reference package.
+16^4 x 200 timing, its launches by mode on the distributed path and on
+the four-rank solver paths, and its slab times); the last line is
+``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the
+reference package.
 """
 from __future__ import annotations
 
@@ -271,6 +281,21 @@ DIST_POINTS = (("wilson-16x16x16x16", 1), ("wilson-16x16x16x16", 12),
 DIST_MODES = ("fused", "interior", "split")
 DIST_HOP_LAUNCHES = {"fused": (1, 0), "interior": (5, 0), "split": (4, 1)}
 DIST_GRID, DIST_LATTICE = (2, 2), "wilson-16x16x16x16"
+# The four-rank job's solver paths on that grid: block CG on the
+# 12-source block in interior mode; undeflated, Lanczos-deflated
+# (DEFLATION_RANK, DIST_LANCZOS_ITERS steps) and recycle cgnr on the weak
+# gauge, DIST_WEAK_SOLVES sources each; refined solves to REFINED_TOL as
+# (inner dtype, inner tol, nrhs); the overlap mode of each.  The Lanczos
+# pass takes 100 steps, not DEFLATION_ITERS: every MGS coefficient is a
+# group sum, a host round trip through gloo with four ranks on one card,
+# so its cost grows with the square of the steps (PERF.md section 6, PR
+# 21), and 100 steps still deflate to no more iterations than undeflated
+# on each of the four sources (tools/lanczos_steps.py).
+DIST_SOLVER_MODES = {"blockcg": "interior", "deflation": "fused",
+                     "refined": "fused"}
+DIST_WEAK_SOLVES, DIST_LANCZOS_ITERS = 4, 100
+DIST_REFINED = (("f32", 1e-4, 1), ("f32", 1e-4, 12), ("bf16", 1e-3, 1),
+                ("bf16", 1e-3, 12))
 SLAB_SHAPES = {"slab-1x8x16x16": (1, 8, 16, 16),
                "slab-8x1x16x16": (8, 1, 16, 16),
                "slab-1x16x16x16": (1, 16, 16, 16),
@@ -291,6 +316,19 @@ PEAK_BYTES_PER_S = 3.35e12
 
 class PhaseError(RuntimeError):
     pass
+
+
+def card_name():
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` gives them."""
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=False)
+    except OSError as exc:
+        return f"nvidia-smi failed: {exc}"
+    return smi.stdout.strip() or smi.stderr.strip()
 
 
 def check(cond, msg):
@@ -791,7 +829,8 @@ class DhatCount:
         from repro_torch.kernels import ops, wilson_stencil as ws
         ops.apply_dhat_planar_any = self._entry
         qcd.make_dhat_fn = self._make_dhat
-        torch.cuda.synchronize()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
         self.launches = dict(ws.LAUNCHES)
         self.b1_modes = dict(ws.B1_MODE_LAUNCHES)
         return False
@@ -1054,7 +1093,7 @@ def phase_deflation(device):
     import torch
 
     from repro_torch import api
-    from repro_torch.core import deflate, evenodd, su3
+    from repro_torch.core import deflate
     from repro_torch.resilience import BasisSnapshot
     n_solves = 3
     run = drive(["--lattice", DEFLATION_LATTICE, "--deflate-rank",
@@ -1085,11 +1124,7 @@ def phase_deflation(device):
           f"batched apply over {m} vectors", flush=True)
 
     shape = CHECK_SHAPES[DEFLATION_LATTICE]
-    gen = torch.Generator().manual_seed(7)
-    U = su3.weak_gauge(gen, shape, eps=WEAK_EPS, device=device)
-    U_e, U_o = evenodd.pack_gauge(U)
-    srcs = [_sources(shape, 1, device, gen, torch.complex64)
-            for _ in range(WEAK_SOLVES)]
+    U, U_e, U_o, srcs = _weak_fields(shape, WEAK_SOLVES, device)
     matrix = api.WilsonMatrix.bind(U_e, U_o, WEAK_KAPPA,
                                    backend="cuda_fused")
     check(matrix.backend.name == "cuda_fused" and matrix.device.type
@@ -1665,14 +1700,30 @@ def _dist_fields(shape, nrhs, device, seed=1):
             eo.to(device), layout.spinor_to_planar(ee).to(device))
 
 
-def _dist_matrix(U_e, U_o, mode, group=None, grid=(1, 1), gc="none"):
+def _dist_matrix(U_e, U_o, mode, group=None, grid=(1, 1), gc="none",
+                 kappa=KAPPA, dtype=None):
     from repro_torch import api
     from repro_torch.distributed import qcd
     part = qcd.QCDPartition(group=group, t_ranks=grid[0], z_ranks=grid[1],
                             overlap=mode)
     return api.WilsonMatrix.bind(
-        U_e, U_o, KAPPA, backend=api.BackendSpec(
-            "distributed", gauge_compression=gc), partition=part)
+        U_e, U_o, kappa, backend=api.BackendSpec(
+            "distributed", gauge_compression=gc, dtype=dtype),
+        partition=part)
+
+
+def _weak_fields(shape, n, device):
+    """The deflation phase's weak gauge (WEAK_EPS) and its first ``n``
+    single sources, from its seeded CPU generator."""
+    import torch
+
+    from repro_torch.core import evenodd, su3
+    gen = torch.Generator().manual_seed(7)
+    U = su3.weak_gauge(gen, shape, eps=WEAK_EPS, device=device)
+    U_e, U_o = evenodd.pack_gauge(U)
+    srcs = [_sources(shape, 1, device, gen, torch.complex64)
+            for _ in range(n)]
+    return U, U_e, U_o, srcs
 
 
 def phase_distributed(device):
@@ -1769,12 +1820,128 @@ def phase_distributed(device):
     return {"runs": runs, "b1_modes": totals}
 
 
+def _dist_solver_paths(group, device):
+    """The split-lattice solver paths of the four-rank job, each through
+    a ``SolveSession`` on the ``distributed`` backend (B1 in halo mode),
+    its solves counted (:class:`DhatCount`: the distributed ``Dhat``s
+    and B1's launches by mode) and timed on the host clock with the
+    ranks in step: block CG on the 12-source block (interior), then on
+    the weak gauge (fused) undeflated, the Lanczos build and the
+    deflated solves, and a recycle stream, then the refined solves of
+    DIST_REFINED (fused).  Rank 0 adds every column's full-lattice
+    residual (complex128 for the refined solves).  Returns a row per
+    path."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import api
+    shape = CHECK_SHAPES[DIST_LATTICE]
+    rank0 = dist.get_rank() == 0
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def in_step():
+        dist.barrier()
+        sync()
+        return time.perf_counter()
+
+    def solve_all(label, sess, pairs, U, kappa):
+        walls, results, rels = [], [], []
+        with DhatCount() as count:
+            for ee, eo in pairs:
+                t0 = in_step()
+                xe, xo, res = sess.solve(ee, eo)
+                sync()
+                walls.append(time.perf_counter() - t0)
+                check(xe.device == xo.device == ee.device,
+                      f"four ranks {label}: solution on {xe.device}")
+                cols = (zip(ee, eo, xe, xo) if ee.ndim == 7
+                        else [(ee, eo, xe, xo)])
+                rels.append([_full_residual(U, x_e, x_o, e, o, kappa)
+                             for e, o, x_e, x_o in cols] if rank0 else [])
+                results.append(res)
+        undegraded(f"four ranks {label}", sess)
+        row = {"walls": walls, "rels": rels, "dhats": count.dist_dhats,
+               "b1_modes": count.b1_modes, "launches": count.launches,
+               "solves": len(pairs)}
+        if results[0].__class__.__name__ == "RefinedResult":
+            row.update(
+                outer=[r.outer_iterations for r in results],
+                schur=[torch.as_tensor(r.residual).reshape(-1).tolist()
+                       for r in results],
+                escalations=[list(r.escalations) for r in results],
+                converged=[bool(torch.as_tensor(r.converged).all())
+                           for r in results])
+        else:
+            row.update(
+                iterations=[torch.as_tensor(r.iterations).reshape(-1)
+                            .tolist() for r in results],
+                converged=[bool(torch.as_tensor(r.converged).all())
+                           for r in results])
+        d = sess.stats()["keys"]
+        row["deflation"] = next(iter(d.values())).get("deflation")
+        return row
+
+    out = {}
+    U, U_e, U_o, ee, eo, _ = _dist_fields(shape, 12, device)
+    m = _dist_matrix(U_e, U_o, DIST_SOLVER_MODES["blockcg"], group,
+                     DIST_GRID)
+    out["blockcg"] = solve_all(
+        "blockcg", api.SolveSession(m, api.SolveSpec(method="blockcg",
+                                                     tol=1e-6)),
+        [(ee, eo)], U, KAPPA)
+    del m
+
+    Uw, Uw_e, Uw_o, srcs = _weak_fields(shape, DIST_WEAK_SOLVES, device)
+    mw = _dist_matrix(Uw_e, Uw_o, DIST_SOLVER_MODES["deflation"], group,
+                      DIST_GRID, kappa=WEAK_KAPPA)
+    base = dict(method="cgnr", tol=1e-6, max_iters=2000)
+    out["undeflated"] = solve_all("undeflated", api.SolveSession(
+        mw, api.SolveSpec(**base)), srcs, Uw, WEAK_KAPPA)
+    with DhatCount() as count:
+        t0 = in_step()
+        mw.ensure_deflation(DEFLATION_RANK, "lanczos",
+                            lanczos_iters=DIST_LANCZOS_ITERS)
+        sync()
+        build = time.perf_counter() - t0
+    out["lanczos_build"] = {"walls": [build], "dhats": count.dist_dhats,
+                            "b1_modes": count.b1_modes,
+                            "launches": count.launches, "solves": 0}
+    out["lanczos"] = solve_all("lanczos", api.SolveSession(
+        mw, api.SolveSpec(**base, deflate_rank=DEFLATION_RANK,
+                          deflate_iters=DIST_LANCZOS_ITERS)),
+        srcs, Uw, WEAK_KAPPA)
+    out["recycle"] = solve_all("recycle", api.SolveSession(
+        mw, api.SolveSpec(**base, deflate_rank=DEFLATION_RANK,
+                          deflate_mode="recycle")), srcs, Uw, WEAK_KAPPA)
+    del mw
+
+    c128 = torch.complex128
+    for dtype, inner_tol, nrhs in DIST_REFINED:
+        U, U_e, U_o, ee, eo, _ = _dist_fields(shape, nrhs, device)
+        m = _dist_matrix(U_e, U_o, DIST_SOLVER_MODES["refined"], group,
+                         DIST_GRID, dtype=dtype)
+        sess = api.SolveSession(m, api.SolveSpec(
+            method="cgnr", tol=REFINED_TOL, inner_dtype=dtype,
+            inner_tol=inner_tol))
+        out[f"refined {dtype} x{nrhs}"] = solve_all(
+            f"refined {dtype} x{nrhs}", sess, [(ee.to(c128), eo.to(c128))],
+            U.to(c128), KAPPA)
+        del m, sess
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 def _dist_rank(rank, world, port, out_path, device_type="cuda",
                backend="gloo"):
     """One rank of the four-rank job (spawned): the gathered ``Dhat`` of
     every overlap mode with full and ``two_row`` links, one and 12
     sources (one in split); a cgnr solve per mode; the fused ``Dhat``'s
-    wall time and its source exchange's.  Rank 0 saves the results to
+    wall time and its source exchange's; then the solver paths
+    (:func:`_dist_solver_paths`).  Rank 0 saves the results to
     ``out_path``.  gloo puts every rank on card 0 (``device_type``
     ``"cpu"`` rehearses the job without a card); NCCL puts rank r on
     card r."""
@@ -1835,6 +2002,8 @@ def _dist_rank(rank, world, port, out_path, device_type="cuda",
             out["times"][nrhs] = (
                 timed(lambda: m.apply_native(v)),
                 2 * timed(lambda: halo.extend_tz(v, grid, lead, lead + 1)))
+        del m, v
+        out["solvers"] = _dist_solver_paths(group, device)
         if rank == 0:
             torch.save(out, out_path)
     finally:
@@ -1850,7 +2019,9 @@ def phase_four_ranks(device, backend="gloo"):
     each mode's cgnr solve within one iteration of the one-process count
     and within the residual gate; prints the fused ``Dhat``'s wall time
     and its source exchange's share beside ``halo_traffic_model``'s
-    bytes."""
+    bytes; then holds the solver paths (:func:`_check_dist_solvers`).
+    Returns rank 0's results, with B1's launches by mode over the solver
+    paths (``b1_modes``)."""
     import shutil
     import socket
 
@@ -1923,7 +2094,135 @@ def phase_four_ranks(device, backend="gloo"):
     print(f"four ranks: every gathered Dhat (3 modes x full/two_row, 1 and "
           f"12 sources) within {worst:.3e} of cuda_hop's (atol 5e-5)",
           flush=True)
+    res["b1_modes"] = _check_dist_solvers(res["solvers"], device)
     return res
+
+
+def _one_process_solvers(device):
+    """The four-rank solver paths' references in one process on
+    ``cuda_hop`` (two B1 launches per ``Dhat``): block CG's iterations
+    per column, the Lanczos-deflated solves' and the recycle stream's
+    iterations, and each refined solve's outer passes."""
+    import torch
+
+    from repro_torch import api
+    shape = CHECK_SHAPES[DIST_LATTICE]
+    out = {}
+    _, U_e, U_o, ee, eo, _ = _dist_fields(shape, 12, device)
+    sess = api.SolveSession(
+        api.WilsonMatrix.bind(U_e, U_o, KAPPA, backend="cuda_hop"),
+        api.SolveSpec(method="blockcg", tol=1e-6))
+    out["blockcg"] = [sess.solve(ee, eo)[2].iterations.tolist()]
+    _, Uw_e, Uw_o, srcs = _weak_fields(shape, DIST_WEAK_SOLVES, device)
+    mw = api.WilsonMatrix.bind(Uw_e, Uw_o, WEAK_KAPPA, backend="cuda_hop")
+    base = dict(method="cgnr", tol=1e-6, max_iters=2000)
+    for label, kw in (("lanczos", dict(deflate_rank=DEFLATION_RANK,
+                                       deflate_iters=DIST_LANCZOS_ITERS)),
+                      ("recycle", dict(deflate_rank=DEFLATION_RANK,
+                                       deflate_mode="recycle"))):
+        sess = api.SolveSession(mw, api.SolveSpec(**base, **kw))
+        out[label] = [[int(sess.solve(e, o)[2].iterations)]
+                      for e, o in srcs]
+    for dtype, inner_tol, nrhs in DIST_REFINED:
+        _, U_e, U_o, ee, eo, _ = _dist_fields(shape, nrhs, device)
+        sess = api.SolveSession(
+            api.WilsonMatrix.bind(U_e, U_o, KAPPA, backend=api.BackendSpec(
+                "cuda_hop", dtype=dtype)),
+            api.SolveSpec(method="cgnr", tol=REFINED_TOL, inner_dtype=dtype,
+                          inner_tol=inner_tol))
+        out[f"refined {dtype} x{nrhs}"] = [sess.solve(
+            ee.to(torch.complex128), eo.to(torch.complex128))[2]
+            .outer_iterations]
+    del sess, mw
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_dist_solvers(rows, device):
+    """Hold the four-rank solver paths (:func:`_dist_solver_paths`) to
+    one process's (:func:`_one_process_solvers`) and their gates:
+
+    * block CG x 12: every column within one iteration of one process's
+      and its full-lattice residual <= 1e-5;
+    * Lanczos-deflated cgnr: each solve no slower than the four-rank
+      undeflated solve of its source and within two iterations of one
+      process's deflated solve; the recycle stream within one, solve by
+      solve; every full-lattice residual <= 1e-5;
+    * refined f32 and bf16, 1 and 12 sources: every column's f64 Schur
+      residual <= REFINED_TOL and full-lattice residual (complex128)
+      <= 10 REFINED_TOL, no escalation, outer passes as one process's;
+    * every path's B1 launches, exactly: in halo mode, (launches per hop
+      of its overlap mode) x (2 per distributed ``Dhat`` + 2 per plain
+      solve for its right-hand side and odd reconstruction; a refined
+      solve's hops are the f64 oracle's), none periodic, no B2 or B3.
+
+    Prints each path's launches per solve and wall time beside the
+    card's name and power limit; returns B1's launches by mode over
+    every path."""
+    one = _one_process_solvers(device)
+    card = card_name()
+    totals = {"halo": 0, "periodic": 0}
+    for label, row in rows.items():
+        mode = DIST_SOLVER_MODES[label.split()[0] if label.startswith(
+            ("blockcg", "refined")) else "deflation"]
+        halo_n, periodic_n = DIST_HOP_LAUNCHES[mode]
+        hops = 2 * row["dhats"] + (
+            0 if label.startswith("refined") else 2 * row["solves"])
+        want = {"halo": hops * halo_n, "periodic": hops * periodic_n}
+        check(row["b1_modes"] == want and row["launches"] == {
+                  "hop_block_planar": sum(want.values()),
+                  "dhat_planar_fused": 0, "dhat_planar_fused_stream": 0},
+              f"four ranks {label}: {row['dhats']} Dhats, launches "
+              f"{row['launches']}, B1 by mode {row['b1_modes']}; expected "
+              f"{want} for {hops} hops")
+        for k in totals:
+            totals[k] += row["b1_modes"][k]
+        if label == "lanczos_build":
+            print(f"four ranks: Lanczos build (rank {DEFLATION_RANK}, "
+                  f"{DIST_LANCZOS_ITERS} steps over complex blocks) "
+                  f"{row['walls'][0]:.3f} s, {row['dhats']} Dhats, B1 "
+                  f"{row['b1_modes']} ({mode}); card {card}", flush=True)
+            continue
+        rels = [r for rs in row["rels"] for r in rs]
+        gate = 10 * REFINED_TOL if label.startswith("refined") else 1e-5
+        check(all(row["converged"]) and max(rels) <= gate,
+              f"four ranks {label}: converged {row['converged']}, "
+              f"full-lattice residuals {rels} (gate {gate:g})")
+        if label.startswith("refined"):
+            schur = [r for rs in row["schur"] for r in rs]
+            check(max(schur) <= REFINED_TOL
+                  and not any(row["escalations"])
+                  and row["outer"] == one[label],
+                  f"four ranks {label}: f64 Schur residuals {schur}, "
+                  f"escalations {row['escalations']}, outer passes "
+                  f"{row['outer']} (one process: {one[label]})")
+            counts = f"outer {row['outer']} (one process {one[label]})"
+        else:
+            iters = row["iterations"]
+            if label in one:
+                slack = 2 if label == "lanczos" else 1
+                check(all(abs(a - b) <= slack for s4, s1 in
+                          zip(iters, one[label]) for a, b in zip(s4, s1)),
+                      f"four ranks {label}: iterations {iters}, one "
+                      f"process {one[label]} (within {slack})")
+            if label == "lanczos":
+                check(all(a <= b for (a,), (b,) in
+                          zip(iters, rows["undeflated"]["iterations"])),
+                      f"four ranks lanczos: iterations {iters} above the "
+                      f"undeflated {rows['undeflated']['iterations']}")
+            counts = f"iterations {iters}" + (
+                f" (one process {one[label]})" if label in one else "")
+        n = max(1, row["solves"])
+        print(f"four ranks: {label} ({mode}) {counts}; full-lattice "
+              f"residual max {max(rels):.2e}; per solve B1 halo "
+              f"{row['b1_modes']['halo'] / n:g} periodic "
+              f"{row['b1_modes']['periodic'] / n:g} ({row['dhats'] / n:g} "
+              f"Dhats); wall per solve "
+              + ", ".join(f"{w * 1e3:.1f}" for w in row["walls"])
+              + f" ms (ranks in step); card {card}"
+              + (f"; basis {row['deflation']}" if row.get("deflation")
+                 else ""), flush=True)
+    return totals
 
 
 def _serving_want(count, stream, batches):
@@ -2733,11 +3032,7 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=False)
-    print(f"card: {smi.stdout.strip() or smi.stderr.strip()}")
+    print(f"card: {card_name()}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"{torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} device(s)", flush=True)
@@ -2766,7 +3061,7 @@ def main(argv=None):
     timed("block_of_one", phase_block_of_one, device)
     timed("policy_solves", phase_policy_solves, device)
     distributed = timed("distributed", phase_distributed, device)
-    timed("four_ranks", phase_four_ranks, device)
+    four = timed("four_ranks", phase_four_ranks, device)
     serving = timed("serving", phase_serving, device)
     copy_bps = copy_bandwidth(device)
     print(f"copy bandwidth: {copy_bps / 1e9:.0f} GB/s (device-to-device"
@@ -2869,6 +3164,11 @@ def main(argv=None):
     kernels[0]["launches_distributed"] = distributed["b1_modes"]
     check(distributed["b1_modes"]["halo"] > 0,
           "B1 made no halo-mode launch on the distributed path")
+    # The split-lattice solver paths of the four-rank job (block CG,
+    # deflation, refined solves): rank 0's B1 launches by mode there.
+    kernels[0]["launches_four_rank_solvers"] = four["b1_modes"]
+    check(four["b1_modes"]["halo"] > 0,
+          "B1 made no halo-mode launch on the four-rank solver paths")
     kernels[0]["slabs"] = [
         {"lattice": lattice, "nrhs": nrhs, **row}
         for (lattice, nrhs, _, _, _), row in slab_rows.items()]

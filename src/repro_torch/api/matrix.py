@@ -44,13 +44,16 @@ class WilsonMatrix:
     """
 
     def __init__(self, ops, kappa: float, lattice: LatticeSpec,
-                 backend: BackendSpec, device, gauge=None):
+                 backend: BackendSpec, device, gauge=None, bind_opts=None):
         self.ops = ops
         self.kappa = float(kappa)
         self.lattice = lattice
         self.backend = backend
         self.device = device
         self._exact_gauge = gauge
+        # The factory kwargs beside the spec (a partition): an
+        # escalation rebinds with them, a fallback rebind drops them.
+        self.bind_opts = dict(bind_opts or {})
         self._deflation = {}
         # Resilience state, set by bind and fallback_next.
         self.fallback_enabled = False
@@ -151,7 +154,8 @@ class WilsonMatrix:
         # lie ~1e-3 off the field), so refined solves take their f64
         # operator, and fallback rebinds their gauge, from the exact
         # (repaired, if asked) halves kept here.
-        return cls(ops, kappa, lattice, spec, U_e.device, gauge=(U_e, U_o))
+        return cls(ops, kappa, lattice, spec, U_e.device, gauge=(U_e, U_o),
+                   bind_opts=bind_opts)
 
     @property
     def degraded(self) -> bool:
@@ -205,17 +209,24 @@ class WilsonMatrix:
         complex span (:func:`repro_torch.core.deflate.
         planar_from_complex`): the reference runs it on the planar
         vectors, where it resolves one vector of each pair ``v, i v``
-        and leaves the pair's eigenvalue in place.  ``"recycle"`` starts
-        empty and grows from harvested solutions (driven by
-        :class:`~repro_torch.api.SolveSession`), with its harvest filter
-        scaled by a power-iteration estimate of the top eigenvalue.
+        and leaves the pair's eigenvalue in place.  On a lattice split
+        between ranks (``planar_sharded``) the pass runs over each rank's
+        complex block, through the rank-local codec of ``ops.shard``, and
+        every inner product is summed over the ranks; the start vector is
+        the same global draw, of which each rank keeps its block.
+        ``"recycle"`` starts empty and grows from harvested solutions
+        (driven by :class:`~repro_torch.api.SolveSession`), with its
+        harvest filter scaled by a power-iteration estimate of the top
+        eigenvalue.
         ``checkpoint`` names a :class:`repro_torch.resilience.
         BasisSnapshot` directory: a basis of matching shapes found there
         is restored instead of built, and recycle harvests are saved as
-        they land.
+        they land; it is refused on a split lattice
+        (:meth:`require_one_rank`).
         """
-        from ..core import deflate
-        self.require_one_rank("deflation")
+        from ..core import solver as _solver
+        if checkpoint is not None:
+            self.require_one_rank("a deflation basis snapshot (checkpoint=)")
         rank = int(rank)
         if rank < 1:
             raise ValueError(f"deflation rank must be >= 1; got {rank}")
@@ -226,6 +237,14 @@ class WilsonMatrix:
         state = self._deflation.get(key)
         if state is not None:
             return state
+        with _solver.group_reductions(self.ops.group_sum):
+            state = self._build_deflation(rank, mode, checkpoint,
+                                          lanczos_iters)
+        self._deflation[key] = state
+        return state
+
+    def _build_deflation(self, rank, mode, checkpoint, lanczos_iters):
+        from ..core import deflate
         ops, kappa = self.ops, self.kappa
 
         def normal(v):
@@ -255,33 +274,34 @@ class WilsonMatrix:
                                       normal_batched)
                 if snap is not None:
                     snap.save(basis.count(), basis)
-            state = deflate.DeflationState(basis, "lanczos", snapshot=snap)
-        else:
-            raw = restored if restored is not None else template
-            refine = deflate.make_ritz_refine(deflate.RECYCLE_QUALITY)
-            basis = refine(raw) if raw.count() > 0 else raw
-            lam = deflate.estimate_lambda_max(normal, v0)
-            state = deflate.DeflationState(
-                basis, "recycle",
-                update_fn=deflate.make_recycle_update(normal,
-                                                      lam_max=1.1 * lam),
-                refine_fn=refine, snapshot=snap, raw=raw)
-        self._deflation[key] = state
-        return state
+            return deflate.DeflationState(basis, "lanczos", snapshot=snap)
+        raw = restored if restored is not None else template
+        refine = deflate.make_ritz_refine(deflate.RECYCLE_QUALITY)
+        basis = refine(raw) if raw.count() > 0 else raw
+        lam = deflate.estimate_lambda_max(normal, v0)
+        return deflate.DeflationState(
+            basis, "recycle",
+            update_fn=deflate.make_recycle_update(normal, lam_max=1.1 * lam),
+            refine_fn=refine, snapshot=snap, raw=raw,
+            group_sum=ops.group_sum)
 
     def _lanczos(self, rank, iters, v0, normal, normal_batched):
         from ..core import deflate
         ops = self.ops
-        if ops.domain != "planar":
+        if ops.domain == "complex":
             return deflate.lanczos_basis(normal, v0, rank, iters=iters,
                                          op_batched=normal_batched)
+        # Planar: over complex spinors, the rank's block of them on a
+        # split lattice (no gather inside the loop).  Every codec is
+        # batch-polymorphic.
+        enc, dec = ((ops.shard.encode, ops.shard.decode)
+                    if ops.shard is not None
+                    else (ops.to_domain_batched, ops.from_domain_batched))
         basis = deflate.lanczos_basis(
-            lambda psi: ops.from_domain(normal(ops.to_domain(psi))),
-            ops.from_domain(v0), rank // 2, iters=iters,
-            op_batched=lambda psi: ops.from_domain_batched(
-                normal_batched(ops.to_domain_batched(psi))))
-        return deflate.planar_from_complex(basis, ops.to_domain_batched,
-                                           rank)
+            lambda psi: dec(normal(enc(psi))), dec(v0), rank // 2,
+            iters=iters,
+            op_batched=lambda psi: dec(normal_batched(enc(psi))))
+        return deflate.planar_from_complex(basis, enc, rank)
 
     @property
     def multi_rank(self) -> bool:
@@ -291,12 +311,12 @@ class WilsonMatrix:
 
     def require_one_rank(self, what: str) -> None:
         """Raise ``NotImplementedError`` for ``what`` on a lattice split
-        between several ranks (not ported there yet)."""
+        between several ranks (not ported there yet: the basis and
+        refinement snapshots)."""
         if self.multi_rank:
             raise NotImplementedError(
                 f"{what} is not ported for a lattice split between "
-                "several ranks (ROADMAP Queue A); solve with cg, cgnr or "
-                "bicgstab there")
+                "several ranks (ROADMAP Queue A); solve without it there")
 
     @property
     def domain(self) -> str:

@@ -171,8 +171,9 @@ class SolveSession:
     def _escalation_factory(self):
         """The refined solve's ``bops_factory``: the session's backend
         rebound at the rung's dtype where its capabilities list it (so
-        the f64 rung runs the f64 kernels), else ``torch_ref`` at the
-        matching complex dtype."""
+        the f64 rung runs the f64 kernels), with the matrix's bind
+        options (a split lattice keeps its partition), else
+        ``torch_ref`` at the matching complex dtype."""
         matrix = self.matrix
 
         def factory(rung: str):
@@ -182,7 +183,8 @@ class SolveSession:
             if rung in caps.dtypes:
                 return backends.make_wilson_ops(
                     bspec.name, U_e, U_o, **dataclasses.replace(
-                        bspec, dtype=rung).factory_opts())
+                        bspec, dtype=rung).factory_opts(),
+                    **matrix.bind_opts)
             cdt = torch.complex128 if rung == "f64" else torch.complex64
             return backends.make_wilson_ops("torch_ref", U_e.to(cdt),
                                             U_o.to(cdt))
@@ -191,10 +193,7 @@ class SolveSession:
 
     def _build(self, spec: SolveSpec, batched: bool) -> _CacheEntry:
         m = self.matrix
-        if spec.method == "blockcg":
-            m.require_one_rank("blockcg")
         if spec.inner_dtype is not None:
-            m.require_one_rank("a refined solve (inner_dtype)")
             # Mixed-precision refinement: the bound matrix is the inner
             # backend (bound at the inner dtype); the f64 operator takes
             # the exact gauge.

@@ -24,7 +24,11 @@ the leading axis with ``torch.func.vmap``.
 A backend whose native vector is one rank's block of a lattice split
 between the ranks of a process group (``distributed``) sets
 ``group_sum``, the sum over the group that the solvers apply to every
-Krylov scalar before they read it (``None``: one rank).
+Krylov scalar before they read it (``None``: one rank), and ``shard``,
+the rank's place in the split (:class:`repro_torch.distributed.Shard`),
+which the paths that leave the native domain inside a loop (the
+complex Lanczos pass, the refined solve's f64 outer loop) take their
+rank-local codec and block operators from.
 
 Built-in entries (:mod:`repro_torch.backends.wilson`): ``torch_ref``,
 ``cuda_hop``, ``cuda_fused``, ``cuda_fused_stream`` and ``distributed``.
@@ -67,6 +71,10 @@ class WilsonOps:
     apply_dhat_native_batched: Callable = None
     apply_dhat_dagger_native_batched: Callable = None
     group_sum: Callable = None       # tensor -> its sum over the ranks
+    # This rank's place in a lattice split between several ranks (a
+    # repro_torch.distributed.Shard: block, gather, rank-local codec);
+    # None for a whole lattice.
+    shard: object = None
 
     def __post_init__(self):
         unbatched = {
@@ -90,7 +98,8 @@ class WilsonOps:
                     hop_eo: Callable, apply_dhat: Callable,
                     apply_dhat_dagger: Callable,
                     batched: "dict | None" = None,
-                    group_sum: Callable = None) -> "WilsonOps":
+                    group_sum: Callable = None,
+                    shard: object = None) -> "WilsonOps":
         """Build from native-domain operators; ``batched`` maps
         ``*_batched`` field names to the backend's own batched
         operators (the rest take the mapped default)."""
@@ -98,7 +107,7 @@ class WilsonOps:
                    from_domain=from_domain, hop_oe_native=hop_oe,
                    hop_eo_native=hop_eo, apply_dhat_native=apply_dhat,
                    apply_dhat_dagger_native=apply_dhat_dagger,
-                   group_sum=group_sum, **(batched or {}))
+                   group_sum=group_sum, shard=shard, **(batched or {}))
 
 
 def _map1(fn: Callable) -> Callable:

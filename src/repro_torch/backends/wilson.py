@@ -142,7 +142,9 @@ def make_distributed_backend(U_e, U_o, *, partition=None, local=None,
     complex spinor (every rank holds the global source); ``from_domain``
     gathers the global field on every rank, one ``all_gather`` per
     call.  The solvers sum their reductions over the group
-    (``group_sum``).
+    (``group_sum``); on more than one rank ``shard`` carries the block,
+    the gather and the rank-local codec
+    (:class:`repro_torch.distributed.Shard`).
     """
     part = partition if partition is not None else qcd.QCDPartition()
     changes = {"backend": local, "overlap": qcd.normalize_overlap(overlap)}
@@ -152,22 +154,20 @@ def make_distributed_backend(U_e, U_o, *, partition=None, local=None,
     grid = part.grid
     T, Z = U_e.shape[1], U_e.shape[2]
     Tl, Zl = part.local_extents(T, Z)
-    t0, z0 = halo.local_origin(grid, Tl, Zl)
-
-    def block(a, t_axis):
-        return a.narrow(t_axis, t0, Tl).narrow(t_axis + 1, z0, Zl)
+    shard = qcd.Shard(grid, halo.local_origin(grid, Tl, Zl), (Tl, Zl), real)
 
     links = qcd.bind_links(part, *(
         layout.gauge_compress_planar(
-            layout.gauge_to_planar(block(u, 1), real), gauge_compression)
+            layout.gauge_to_planar(shard.block(u, 1), real),
+            gauge_compression)
         for u in (U_e, U_o)))
     hops = {p: qcd.make_hop_fn(part, p) for p in (evenodd.EVEN, evenodd.ODD)}
 
     def to_domain(psi):
-        return layout.spinor_to_planar(block(psi, psi.ndim - 6), dtype=real)
+        return shard.encode(shard.block(psi, psi.ndim - 6))
 
     def from_domain(v):
-        return layout.spinor_from_planar(halo.gather_tz(grid, v, v.ndim - 5))
+        return shard.decode(shard.gather(v, v.ndim - 5))
 
     def hop_oe(v):
         return hops[evenodd.ODD](links, v)
@@ -193,7 +193,8 @@ def make_distributed_backend(U_e, U_o, *, partition=None, local=None,
         apply_dhat=apply_dhat, apply_dhat_dagger=apply_dhat_dagger,
         batched=batched,
         group_sum=(functools.partial(halo.group_sum, grid)
-                   if part.world > 1 else None))
+                   if part.world > 1 else None),
+        shard=shard if part.world > 1 else None)
 
 
 register_backend(

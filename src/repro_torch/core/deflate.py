@@ -24,7 +24,11 @@ subspace of them once per gauge and removes it from every solve:
   the spectrum), keeping the Ritz pairs that the span resolves.
 
 An empty basis is the identity bit for bit: a zero guess and a
-projector that returns its argument.  The updates and refinement select
+projector that returns its argument.  Where a native vector is one
+rank's block of a split lattice, every inner product here is summed
+over the ranks (:func:`repro_torch.core.solver.group_reductions`), so
+that every rank holds the same small matrices and flags and keeps its
+own block of each basis vector.  The updates and refinement select
 with ``torch.where`` on device flags, as the reference's jitted
 functions do; the host reads a basis's fill count only where a caller
 asks (:meth:`DeflationBasis.count`) and once per Lanczos step.
@@ -75,9 +79,10 @@ def _real(x: torch.Tensor) -> torch.Tensor:
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``<a, b>`` as a 0-d tensor on the device (f32-accumulated for
-    vectors below f32, as the solvers' reductions)."""
+    vectors below f32, and summed over the ranks, as the solvers'
+    reductions)."""
     a, b = _sol._acc(a), _sol._acc(b)
-    return torch.vdot(a.reshape(-1), b.reshape(-1))
+    return _sol._global(torch.vdot(a.reshape(-1), b.reshape(-1)))
 
 
 def _scaled(s: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -105,8 +110,8 @@ def _stack_dot(vecs: torch.Tensor, v: torch.Tensor,
     w, x = _sol._acc(vecs), _sol._acc(v)
     wf = w.reshape(w.shape[0], -1).conj()
     if batched:
-        return wf @ x.reshape(x.shape[0], -1).T
-    return wf @ x.reshape(-1)
+        return _sol._global(wf @ x.reshape(x.shape[0], -1).T)
+    return _sol._global(wf @ x.reshape(-1))
 
 
 def _stack_comb(coef: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
@@ -182,7 +187,8 @@ def lanczos_basis(op: Callable, v0: torch.Tensor, rank: int, *,
     are the lowest pairs above the spurious-mode cutoff (16 eps of the
     top Ritz value) whose residual passes :data:`RITZ_QUALITY`.
     """
-    dim = v0.numel()
+    # The space's dimension over every rank's block.
+    dim = int(_sol._global(torch.tensor(v0.numel(), device=v0.device)))
     m = int(iters) if iters else max(3 * rank, rank + 16)
     m = max(1, min(m, dim))
     tiny = _sol._tiny(v0)
@@ -404,12 +410,14 @@ class DeflationState:
     ``"recycle"`` mode the harvested raw span behind it, the updater and
     the Ritz refinement; a :class:`repro_torch.resilience.BasisSnapshot`
     (``snapshot``) persists the raw span after every harvest.
-    ``"lanczos"`` bases stay fixed.
+    ``"lanczos"`` bases stay fixed.  ``group_sum`` (a split lattice's
+    sum over the ranks) sums the reductions of every harvest.
     """
 
     def __init__(self, basis: DeflationBasis, mode: str, update_fn=None,
                  snapshot=None, refine_fn=None,
-                 raw: Optional[DeflationBasis] = None):
+                 raw: Optional[DeflationBasis] = None,
+                 group_sum: Optional[Callable] = None):
         self.basis = basis
         self.raw = raw
         self.mode = mode
@@ -417,6 +425,7 @@ class DeflationState:
         self._update = update_fn
         self._refine = refine_fn
         self._snapshot = snapshot
+        self._group_sum = group_sum
 
     @property
     def rank(self) -> int:
@@ -444,12 +453,14 @@ class DeflationState:
         before = self.count
         if before >= self.rank:
             return False
-        raw1 = self._update(self.raw, v)
-        after = raw1.count()
-        if after == before:
-            return False
-        self.raw = raw1
-        self.basis = self._refine(raw1) if self._refine is not None else raw1
+        with _sol.group_reductions(self._group_sum):
+            raw1 = self._update(self.raw, v)
+            after = raw1.count()
+            if after == before:
+                return False
+            self.raw = raw1
+            self.basis = (self._refine(raw1) if self._refine is not None
+                          else raw1)
         self.harvested += 1
         if self._snapshot is not None:
             self._snapshot.save(after, raw1)

@@ -1042,26 +1042,61 @@ def make_refined_solve(bops, U64_e, U64_o, kappa: float, *,
     ``snapshot`` (a :class:`repro_torch.resilience.RefinementSnapshot`)
     makes the outer loop resumable: the f64 iterate is saved after every
     correction, and a later call resumes from the newest snapshot.
+
+    On a lattice split between ranks (``bops.shard`` set) every rank
+    takes the global sources and returns the global solution, but the
+    outer loop holds only its complex128 block: the f64 operator is
+    :func:`repro_torch.distributed.qcd.make_block_oracle` (a halo
+    exchange per hop), every norm and the inner solves are summed over
+    the ranks (``bops.group_sum``), each correction is encoded and
+    decoded by the rank-local codec, and the solution is gathered once,
+    at the end.  A snapshot is refused there.
     """
     from . import evenodd
 
     U64_e = U64_e.to(torch.complex128)
     U64_o = U64_o.to(torch.complex128)
+    shard = bops.shard
+    if shard is None:
+        def _maybe_map(fn):
+            return torch.func.vmap(fn) if batched else fn
 
-    def _maybe_map(fn):
-        return torch.func.vmap(fn) if batched else fn
+        dhat64 = _maybe_map(
+            lambda v: evenodd.apply_dhat(U64_e, U64_o, v, kappa))
+        hop_eo64 = _maybe_map(lambda v: evenodd.hop_eo(U64_e, U64_o, v))
+        hop_oe64 = _maybe_map(lambda v: evenodd.hop_oe(U64_e, U64_o, v))
+    else:
+        if snapshot is not None:
+            raise NotImplementedError(
+                "a refinement snapshot is not ported for a lattice split "
+                "between several ranks (ROADMAP Queue A); solve without it "
+                "there")
+        from ..distributed import qcd
+        # Batch-polymorphic on the block: no vmap around the exchanges.
+        hop_oe64, hop_eo64, dhat_blk = qcd.make_block_oracle(shard, U64_e,
+                                                             U64_o)
 
-    dhat64 = _maybe_map(lambda v: evenodd.apply_dhat(U64_e, U64_o, v, kappa))
-    hop_eo64 = _maybe_map(lambda v: evenodd.hop_eo(U64_e, U64_o, v))
-    hop_oe64 = _maybe_map(lambda v: evenodd.hop_oe(U64_e, U64_o, v))
+        def dhat64(v):
+            return dhat_blk(v, kappa)
 
     def _inner_ops(b):
+        if b.shard is not None:
+            # The rank-local codec (batch-polymorphic): no gather.
+            to_dom, from_dom = b.shard.encode, b.shard.decode
+        elif batched:
+            to_dom, from_dom = b.to_domain_batched, b.from_domain_batched
+        else:
+            to_dom, from_dom = b.to_domain, b.from_domain
         if batched:
-            return (b.to_domain_batched, b.from_domain_batched,
-                    b.apply_dhat_native_batched,
+            return (to_dom, from_dom, b.apply_dhat_native_batched,
                     b.apply_dhat_dagger_native_batched)
-        return (b.to_domain, b.from_domain, b.apply_dhat_native,
+        return (to_dom, from_dom, b.apply_dhat_native,
                 b.apply_dhat_dagger_native)
+
+    def _block(a):
+        """The rank's block of a global complex spinor (itself on one
+        rank)."""
+        return a if shard is None else shard.block(a, a.ndim - 6)
 
     def rel_of(r, b2):
         if batched:
@@ -1072,8 +1107,12 @@ def make_refined_solve(bops, U64_e, U64_o, kappa: float, *,
     start_rung = ladder.index(_RUNG_OF[resolve_inner_dtype(inner_dtype)])
 
     def refined(eta_e, eta_o):
-        eta64_e = eta_e.to(torch.complex128)
-        eta64_o = eta_o.to(torch.complex128)
+        with group_reductions(bops.group_sum):
+            return _refined(eta_e, eta_o)
+
+    def _refined(eta_e, eta_o):
+        eta64_e = _block(eta_e).to(torch.complex128)
+        eta64_o = _block(eta_o).to(torch.complex128)
         rhs64 = eta64_e + kappa * hop_eo64(eta64_o)
         f64_applies = 1                      # the hop above
         b2 = _bnorm2(rhs64) if batched else _norm2(rhs64)
@@ -1159,6 +1198,10 @@ def make_refined_solve(bops, U64_e, U64_o, kappa: float, *,
             diverged = not math.isfinite(rel) or (
                 bool(inner_div) and not rel <= tol)
             converged = rel <= tol and not diverged
+        if shard is not None:
+            # The one gather: both halves in one all_gather.
+            x64, xi_o64 = shard.gather(torch.stack([x64, xi_o64]),
+                                       x64.ndim - 5)
         xi_e = x64.to(eta_e.dtype)
         xi_o = xi_o64.to(eta_o.dtype)
         return xi_e, xi_o, RefinedResult(

@@ -6,8 +6,8 @@ from __future__ import annotations
 
 from . import halo, qcd
 from .halo import boundary_slab_index
-from .qcd import (QCDPartition, make_dhat_dagger_fn, make_dhat_fn,
+from .qcd import (QCDPartition, Shard, make_dhat_dagger_fn, make_dhat_fn,
                   make_hop_fn)
 
-__all__ = ["halo", "qcd", "QCDPartition", "make_dhat_fn",
+__all__ = ["halo", "qcd", "QCDPartition", "Shard", "make_dhat_fn",
            "make_dhat_dagger_fn", "make_hop_fn", "boundary_slab_index"]

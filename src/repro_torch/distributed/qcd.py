@@ -44,10 +44,10 @@ from ..kernels import layout, ref
 from ..kernels import wilson_stencil as ws
 from . import halo
 
-__all__ = ["QCDPartition", "LocalLinks", "BoundLinks", "bind_links",
+__all__ = ["QCDPartition", "Shard", "LocalLinks", "BoundLinks", "bind_links",
            "make_gauge_extender", "make_hop_fn", "make_dhat_fn",
-           "make_dhat_dagger_fn", "normalize_overlap", "LOCAL_STENCILS",
-           "OVERLAPS"]
+           "make_dhat_dagger_fn", "make_block_oracle", "normalize_overlap",
+           "LOCAL_STENCILS", "OVERLAPS"]
 
 LOCAL_STENCILS = ("cuda_hop", "torch_planar", "torch_ref")
 OVERLAPS = ("fused", "interior", "split")
@@ -134,6 +134,89 @@ class QCDPartition:
             if Tl < 2 or Zl < 2:
                 raise ValueError("overlap='split' needs local T,Z >= 2; "
                                  "use 'fused'")
+
+
+class Shard(NamedTuple):
+    """This rank's block of a lattice split between the ranks of
+    ``grid``: its global ``origin`` ``(t0, z0)``, its ``extents`` ``(Tl,
+    Zl)`` and the planar real ``dtype`` of its native vectors.
+
+    :meth:`block` cuts the block out of a global array, :meth:`gather`
+    puts the global array together from every rank's block (one
+    ``all_gather``), and :meth:`encode` / :meth:`decode` convert a
+    complex block to and from the native planar block with no
+    collective, so that a loop may leave the native domain."""
+
+    grid: halo.TZGrid
+    origin: Tuple[int, int]
+    extents: Tuple[int, int]
+    dtype: torch.dtype
+
+    def block(self, a: torch.Tensor, t_axis: int) -> torch.Tensor:
+        """The rank's ``(Tl, Zl)`` block of ``a``'s global ``(T, Z)`` axes
+        at ``t_axis`` and ``t_axis + 1`` (a view)."""
+        (t0, z0), (Tl, Zl) = self.origin, self.extents
+        return a.narrow(t_axis, t0, Tl).narrow(t_axis + 1, z0, Zl)
+
+    def gather(self, a: torch.Tensor, t_axis: int) -> torch.Tensor:
+        """The global array of every rank's block ``a``, on every rank."""
+        return halo.gather_tz(self.grid, a, t_axis)
+
+    def encode(self, psi: torch.Tensor) -> torch.Tensor:
+        """Complex block ``([n,] Tl, Zl, Y, Xh, 4, 3)`` -> native planar
+        block."""
+        return layout.spinor_to_planar(psi, dtype=self.dtype)
+
+    def decode(self, v: torch.Tensor) -> torch.Tensor:
+        """Native planar block -> complex block."""
+        return layout.spinor_from_planar(v)
+
+
+def _extend_complex(a: torch.Tensor, grid: halo.TZGrid,
+                    t_axis: int) -> torch.Tensor:
+    """:func:`halo.extend_tz` of a complex array, its faces sent as
+    reals."""
+    return torch.view_as_complex(halo.extend_tz(
+        torch.view_as_real(a), grid, t_axis, t_axis + 1))
+
+
+def make_block_oracle(shard: Shard, U_e: torch.Tensor, U_o: torch.Tensor):
+    """The complex even-odd operators on this rank's block of complex
+    spinors ``([nrhs,] Tl, Zl, Y, Xh, 4, 3)``, from the global complex
+    gauge halves: ``(hop_oe, hop_eo, dhat)``, ``dhat(psi, kappa)``.
+
+    The gauge is cut to the block and halo-extended once, here.  Each
+    hop halo-extends its source (t faces, then z faces; a block of
+    sources in one message per face) and applies
+    :func:`repro_torch.core.evenodd.hop_block_ext` with the block's
+    parity offset, mapped over the leading axis of a block after the
+    exchange: the refined solve's f64 operator on a split lattice, which
+    shares nothing with the kernels under test."""
+    grid = shard.grid
+    u_e, u_o = (shard.block(u, 1) for u in (U_e, U_o))
+    u_e_ext, u_o_ext = (_extend_complex(u, grid, 1) for u in (u_e, u_o))
+    off = sum(shard.origin) % 2
+
+    def hop(src, out_parity):
+        lead = src.ndim - 6
+        src_ext = _extend_complex(src, grid, lead)
+        u_out, u_in = ((u_o, u_e_ext) if out_parity == evenodd.ODD
+                       else (u_e, u_o_ext))
+
+        def one(s):
+            return evenodd.hop_block_ext(u_out, u_in, s, out_parity, off)
+        return torch.func.vmap(one)(src_ext) if lead else one(src_ext)
+
+    def hop_oe(psi_e):
+        return hop(psi_e, evenodd.ODD)
+
+    def hop_eo(psi_o):
+        return hop(psi_o, evenodd.EVEN)
+
+    def dhat(psi_e, kappa):
+        return psi_e - (kappa * kappa) * hop_eo(hop_oe(psi_e))
+
+    return hop_oe, hop_eo, dhat
 
 
 def _slabs(Tl: int, Zl: int):

@@ -47,7 +47,8 @@ and ``degraded=`` on the session line).
 ``interior``/``fused``): under ``torchrun`` (``WORLD_SIZE`` set) every
 rank joins one group, NCCL on ``cuda:LOCAL_RANK`` or gloo with
 ``--device cpu``, and only rank 0 prints; without it there is one rank
-and no group.
+and no group.  Every method, ``--deflate-rank`` and ``--inner-dtype``
+run on the split lattice.
 ``--backend auto`` is ``cuda_fused`` on ``cuda`` and ``torch_ref`` on
 ``cpu``; ``--backend help`` lists the registry and exits.
 """
