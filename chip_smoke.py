@@ -117,7 +117,17 @@ Run from a checkout: it builds the CUDA kernels from
    Lanczos; outer passes equal) and to its residual gates, every B1
    launch counted exactly (halo mode, none periodic), each path's
    launches per solve and wall time printed beside the card's name and
-   power limit;
+   power limit; the Lanczos basis saved through ``checkpoint=`` (each
+   rank its block of one global snapshot), restored by a rebind with no
+   kernel launched and solving in the same iterations, and restored by
+   one process on ``cuda_hop`` bit for bit against the gathered basis
+   (within one iteration); a refined f32 solve stopped after two outer
+   passes and resumed from its snapshot (the uninterrupted outer passes
+   in all, the f64 gates); and a daemon serving the split lattice
+   (every rank registers the hot gauge, rank 0 takes 16 single-source
+   requests at once, the others follow): every request within one
+   iteration of one process and the residual gate, one build per
+   (spec, bucket) and B1's launches exact on every rank;
 7g. drives the serving daemon at 16^4 (``serving``, hot gauge, cgnr tol
    1e-6, every ``Dhat`` counted and every kernel's launches checked
    exactly): the CLI ``repro_torch.launch.serve --selftest 16`` (HTTP on
@@ -168,6 +178,7 @@ reference package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import re
@@ -294,6 +305,11 @@ DIST_GRID, DIST_LATTICE = (2, 2), "wilson-16x16x16x16"
 DIST_SOLVER_MODES = {"blockcg": "interior", "deflation": "fused",
                      "refined": "fused"}
 DIST_WEAK_SOLVES, DIST_LANCZOS_ITERS = 4, 100
+# The four-rank job's serving path: DIST_SERVED single-source requests
+# at once (hot gauge, cgnr 1e-6, max block 4, DIST_SERVE_BUCKETS,
+# fused); and the refined f32 x 1 solve stopped after DIST_RESUME_AT
+# outer passes, then resumed from its snapshot.
+DIST_SERVED, DIST_SERVE_BUCKETS, DIST_RESUME_AT = 16, (1, 2, 4), 2
 DIST_REFINED = (("f32", 1e-4, 1), ("f32", 1e-4, 12), ("bf16", 1e-3, 1),
                 ("bf16", 1e-3, 12))
 SLAB_SHAPES = {"slab-1x8x16x16": (1, 8, 16, 16),
@@ -1820,23 +1836,30 @@ def phase_distributed(device):
     return {"runs": runs, "b1_modes": totals}
 
 
-def _dist_solver_paths(group, device):
-    """The split-lattice solver paths of the four-rank job, each through
-    a ``SolveSession`` on the ``distributed`` backend (B1 in halo mode),
-    its solves counted (:class:`DhatCount`: the distributed ``Dhat``s
-    and B1's launches by mode) and timed on the host clock with the
-    ranks in step: block CG on the 12-source block (interior), then on
-    the weak gauge (fused) undeflated, the Lanczos build and the
-    deflated solves, and a recycle stream, then the refined solves of
-    DIST_REFINED (fused).  Rank 0 adds every column's full-lattice
-    residual (complex128 for the refined solves).  Returns a row per
-    path."""
+@contextlib.contextmanager
+def _timed_calls(cls, name, walls):
+    """While entered, every call of ``cls.name`` appends its wall
+    seconds to ``walls``."""
+    real = getattr(cls, name)
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **kw)
+        finally:
+            walls.append(time.perf_counter() - t0)
+    setattr(cls, name, timed)
+    try:
+        yield walls
+    finally:
+        setattr(cls, name, real)
+
+
+def _ranks_in_step(device):
+    """``(sync, in_step)``: a device synchronise, and a barrier then a
+    synchronise that returns the host clock (the ranks in step)."""
     import torch
     import torch.distributed as dist
-
-    from repro_torch import api
-    shape = CHECK_SHAPES[DIST_LATTICE]
-    rank0 = dist.get_rank() == 0
 
     def sync():
         if device.type == "cuda":
@@ -1846,6 +1869,32 @@ def _dist_solver_paths(group, device):
         dist.barrier()
         sync()
         return time.perf_counter()
+    return sync, in_step
+
+
+def _dist_solver_paths(group, device, snapdir):
+    """The split-lattice solver paths of the four-rank job, each through
+    a ``SolveSession`` on the ``distributed`` backend (B1 in halo mode),
+    its solves counted (:class:`DhatCount`: the distributed ``Dhat``s
+    and B1's launches by mode) and timed on the host clock with the
+    ranks in step: block CG on the 12-source block (interior), then on
+    the weak gauge (fused) undeflated, the Lanczos build (saved through
+    ``checkpoint=`` under ``snapdir``) and the deflated solves, a rebind
+    restoring the basis and its deflated solve of the first source
+    (``restored``), and a recycle stream, then the refined solves of
+    DIST_REFINED (fused).  Rank 0 adds every column's full-lattice
+    residual (complex128 for the refined solves).  Returns a row per
+    path, and the basis snapshot's record: save and restore seconds,
+    bytes per rank, the restore's launches, its bit equality with the
+    built basis, and (rank 0) the gathered basis."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import api
+    from repro_torch.resilience import BasisSnapshot
+    shape = CHECK_SHAPES[DIST_LATTICE]
+    rank0 = dist.get_rank() == 0
+    sync, in_step = _ranks_in_step(device)
 
     def solve_all(label, sess, pairs, U, kappa):
         walls, results, rels = [], [], []
@@ -1900,19 +1949,49 @@ def _dist_solver_paths(group, device):
     base = dict(method="cgnr", tol=1e-6, max_iters=2000)
     out["undeflated"] = solve_all("undeflated", api.SolveSession(
         mw, api.SolveSpec(**base)), srcs, Uw, WEAK_KAPPA)
-    with DhatCount() as count:
+    basis_dir = str(snapdir / "basis")
+    saves = []
+    with DhatCount() as count, _timed_calls(BasisSnapshot, "save", saves):
         t0 = in_step()
-        mw.ensure_deflation(DEFLATION_RANK, "lanczos",
-                            lanczos_iters=DIST_LANCZOS_ITERS)
+        built = mw.ensure_deflation(DEFLATION_RANK, "lanczos",
+                                    checkpoint=basis_dir,
+                                    lanczos_iters=DIST_LANCZOS_ITERS)
         sync()
         build = time.perf_counter() - t0
     out["lanczos_build"] = {"walls": [build], "dhats": count.dist_dhats,
                             "b1_modes": count.b1_modes,
                             "launches": count.launches, "solves": 0}
-    out["lanczos"] = solve_all("lanczos", api.SolveSession(
-        mw, api.SolveSpec(**base, deflate_rank=DEFLATION_RANK,
-                          deflate_iters=DIST_LANCZOS_ITERS)),
-        srcs, Uw, WEAK_KAPPA)
+    lanczos = api.SolveSpec(**base, deflate_rank=DEFLATION_RANK,
+                            deflate_iters=DIST_LANCZOS_ITERS)
+    out["lanczos"] = solve_all("lanczos", api.SolveSession(mw, lanczos),
+                               srcs, Uw, WEAK_KAPPA)
+    # A rebind restores the basis: no kernel before its first solve.
+    again = _dist_matrix(Uw_e, Uw_o, DIST_SOLVER_MODES["deflation"], group,
+                         DIST_GRID, kappa=WEAK_KAPPA)
+    with DhatCount() as count:
+        t0 = in_step()
+        restored = again.ensure_deflation(
+            DEFLATION_RANK, "lanczos", checkpoint=basis_dir,
+            lanczos_iters=DIST_LANCZOS_ITERS)
+        sync()
+        restore = time.perf_counter() - t0
+    shard = mw.ops.shard
+    snap = {"build_s": build, "save_s": saves, "restore_s": restore,
+            "restore_launches": count.launches,
+            "restore_dhats": count.dist_dhats,
+            "equal": all(torch.equal(a, b)
+                         for a, b in zip(restored.basis, built.basis)),
+            "bytes_per_rank": sum(t.nbytes for t in built.basis),
+            "filled": built.basis.count()}
+    gathered = [shard.gather(v, 1) for v in built.basis[:2]]
+    if rank0:
+        snap["gathered"] = tuple(t.cpu() for t in
+                                 gathered + list(built.basis[2:]))
+    del gathered
+    out["restored"] = solve_all("restored", api.SolveSession(
+        again, dataclasses.replace(lanczos, deflate_checkpoint=basis_dir)),
+        srcs[:1], Uw, WEAK_KAPPA)
+    del again, restored
     out["recycle"] = solve_all("recycle", api.SolveSession(
         mw, api.SolveSpec(**base, deflate_rank=DEFLATION_RANK,
                           deflate_mode="recycle")), srcs, Uw, WEAK_KAPPA)
@@ -1932,7 +2011,120 @@ def _dist_solver_paths(group, device):
         del m, sess
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    return out
+    return out, snap
+
+
+def _dist_refined_resume(device, snapdir):
+    """The refined f32 x 1 solve of DIST_REFINED (fused) stopped after
+    DIST_RESUME_AT outer passes with a ``RefinementSnapshot`` under
+    ``snapdir``, then resumed from it, counted and timed (ranks in
+    step); the snapshot's save and restore seconds and bytes per rank.
+    Rank 0 adds the full-lattice residual in complex128."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import solver
+    from repro_torch.resilience import RefinementSnapshot
+    shape = CHECK_SHAPES[DIST_LATTICE]
+    sync, in_step = _ranks_in_step(device)
+    group = dist.group.WORLD
+    c128 = torch.complex128
+    U, U_e, U_o, ee, eo, _ = _dist_fields(shape, 1, device)
+    m = _dist_matrix(U_e, U_o, DIST_SOLVER_MODES["refined"], group,
+                     DIST_GRID, dtype="f32")
+    U64 = m.gauge_complex()
+    e64, o64 = ee.to(c128), eo.to(c128)
+    snap = RefinementSnapshot(snapdir / "refined")
+
+    def refined(**kw):
+        return solver.make_refined_solve(
+            m.ops, *U64, KAPPA, tol=REFINED_TOL, inner_tol=1e-4,
+            snapshot=snap, **kw)
+    saves, restores, walls = [], [], []
+    with DhatCount() as count, \
+            _timed_calls(RefinementSnapshot, "save", saves), \
+            _timed_calls(RefinementSnapshot, "resume", restores):
+        t0 = in_step()
+        _, _, part = refined(max_outer=DIST_RESUME_AT)(e64, o64)
+        sync()
+        walls.append(time.perf_counter() - t0)
+        t0 = in_step()
+        xe, xo, res = refined()(e64, o64)
+        sync()
+        walls.append(time.perf_counter() - t0)
+    Tl, Zl = m.ops.shard.extents
+    return {"part_outer": part.outer_iterations,
+            "part_converged": bool(part.converged),
+            "outer": res.outer_iterations, "converged": bool(res.converged),
+            "schur": float(res.residual), "escalations": res.escalations,
+            "rel": (_full_residual(U.to(c128), xe, xo, e64, o64, KAPPA)
+                    if dist.get_rank() == 0 else None),
+            "walls": walls, "save_s": saves, "restore_s": restores,
+            "bytes_per_rank": e64.nbytes * Tl * Zl // (shape[0] * shape[1]),
+            "dhats": count.dist_dhats, "b1_modes": count.b1_modes,
+            "launches": count.launches}
+
+
+def _dist_serving(device):
+    """The serving daemon on the split lattice: every rank binds the hot
+    gauge on ``distributed`` (fused) and registers it warmed (cgnr 1e-6,
+    DIST_SERVE_BUCKETS); rank 0 submits DIST_SERVED single sources at
+    once (max block 4, linger 2 ms) and times them, the others follow.
+    Every rank's launches and ``Dhat``s over the window are counted, and
+    its daemon's batches and builds read.  Returns every rank's row (rank
+    0's with each request's iterations, full-lattice residual and
+    latency)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import api
+    from repro_torch.serving import BatchingPolicy, PropagatorDaemon
+    shape = CHECK_SHAPES[DIST_LATTICE]
+    group = dist.group.WORLD
+    sync, in_step = _ranks_in_step(device)
+    U, U_e, U_o, ee, eo, _ = _dist_fields(shape, DIST_SERVED, device)
+    spec = api.SolveSpec(method="cgnr", tol=1e-6)
+    daemon = PropagatorDaemon(batching=BatchingPolicy(
+        max_block=4, linger_s=0.002, buckets=DIST_SERVE_BUCKETS),
+        group=group)
+    daemon.register("hot", _dist_matrix(U_e, U_o, "fused", group,
+                                        DIST_GRID), warmup_spec=spec)
+    row = {}
+    with DhatCount() as count:
+        t0 = in_step()
+        if daemon.rank == 0:
+            daemon.start()
+            subs, done = [], {}
+            for i in range(DIST_SERVED):
+                ts = time.perf_counter()
+                f = daemon.submit("hot", ee[i], eo[i], spec)
+                f.add_done_callback(lambda _, i=i: done.__setitem__(
+                    i, time.perf_counter()))
+                subs.append((ts, f))
+            results = [f.result(timeout=600) for _, f in subs]
+            wall = time.perf_counter() - t0
+            daemon.drain()
+            row.update(
+                wall_s=wall,
+                latency_s=[done[i] - ts for i, (ts, _) in enumerate(subs)],
+                iterations=[r.stats["iterations"][0] for r in results],
+                converged=[r.converged for r in results],
+                rels=[_full_residual(U, r.xi_e[0], r.xi_o[0], ee[i], eo[i],
+                                     KAPPA)
+                      for i, r in enumerate(results)])
+        else:
+            daemon.follow()
+        sync()
+    m = daemon.metrics()
+    sess = m["pool"]["entries"]["hot"]["session"]
+    row.update(batches=m["batches"], failed=m["failed"],
+               mean_batch_columns=m["mean_batch_columns"],
+               traces=sess["traces"], keys=len(sess["keys"]),
+               dhats=count.dist_dhats, b1_modes=count.b1_modes,
+               launches=count.launches)
+    rows = [None] * dist.get_world_size()
+    dist.all_gather_object(rows, row)
+    return rows
 
 
 def _dist_rank(rank, world, port, out_path, device_type="cuda",
@@ -2003,7 +2195,11 @@ def _dist_rank(rank, world, port, out_path, device_type="cuda",
                 timed(lambda: m.apply_native(v)),
                 2 * timed(lambda: halo.extend_tz(v, grid, lead, lead + 1)))
         del m, v
-        out["solvers"] = _dist_solver_paths(group, device)
+        snapdir = Path(out_path).parent / "snapshots"
+        out["solvers"], out["basis_snapshot"] = _dist_solver_paths(
+            group, device, snapdir)
+        out["refined_resume"] = _dist_refined_resume(device, snapdir)
+        out["serving"] = _dist_serving(device)
         if rank == 0:
             torch.save(out, out_path)
     finally:
@@ -2019,9 +2215,11 @@ def phase_four_ranks(device, backend="gloo"):
     each mode's cgnr solve within one iteration of the one-process count
     and within the residual gate; prints the fused ``Dhat``'s wall time
     and its source exchange's share beside ``halo_traffic_model``'s
-    bytes; then holds the solver paths (:func:`_check_dist_solvers`).
-    Returns rank 0's results, with B1's launches by mode over the solver
-    paths (``b1_modes``)."""
+    bytes; then holds the solver paths (:func:`_check_dist_solvers`) and
+    the snapshot and serving paths (:func:`_check_dist_snapshots_serving`,
+    while the ranks' snapshots are still on disk).  Returns rank 0's
+    results, with B1's launches by mode over the solver paths
+    (``b1_modes``) and over the serving window (``serving_b1_modes``)."""
     import shutil
     import socket
 
@@ -2043,7 +2241,6 @@ def phase_four_ranks(device, backend="gloo"):
                                          backend),
                        nprocs=world, join=True, start_method="spawn")
     res = torch.load(out_dir / "out.pt", weights_only=False)
-    shutil.rmtree(out_dir, ignore_errors=True)
     cards = "one card" if backend == "gloo" else f"{world} cards"
     print(f"four ranks: {backend} job of {world} ranks on {cards}, "
           f"{time.time() - t0:.1f} s", flush=True)
@@ -2095,6 +2292,9 @@ def phase_four_ranks(device, backend="gloo"):
           f"12 sources) within {worst:.3e} of cuda_hop's (atol 5e-5)",
           flush=True)
     res["b1_modes"] = _check_dist_solvers(res["solvers"], device)
+    res["serving_b1_modes"] = _check_dist_snapshots_serving(
+        res, device, out_dir / "snapshots")
+    shutil.rmtree(out_dir, ignore_errors=True)
     return res
 
 
@@ -2223,6 +2423,149 @@ def _check_dist_solvers(rows, device):
               + (f"; basis {row['deflation']}" if row.get("deflation")
                  else ""), flush=True)
     return totals
+
+
+def _check_dist_snapshots_serving(res, device, snapdir):
+    """Hold the four-rank job's snapshot and serving paths to their
+    gates (the job's basis snapshot is still under ``snapdir``):
+
+    * the basis: the rebind's restore launched no kernel and ran no
+      ``Dhat`` on any rank, bit-equal to the built basis, and its
+      deflated solve took the Lanczos solve's iterations on that source;
+      one process on ``cuda_hop`` restores the directory bit for bit
+      against the gathered basis, launching nothing, and solves within
+      one iteration;
+    * the refined f32 x 1 solve stopped after DIST_RESUME_AT outer
+      passes and resumed: the uninterrupted solve's outer passes in all,
+      f64 Schur residual <= REFINED_TOL, full-lattice residual
+      (complex128) <= 10 REFINED_TOL, no escalation, B1 two halo
+      launches per ``Dhat``;
+    * serving: every request converged within the residual gate and one
+      iteration of one process's ``cuda_hop`` solve of its source; on
+      every rank, no failure, one build per (spec, bucket) and B1's
+      launches exactly two halo per ``Dhat`` and two per batch.
+
+    Prints the times beside the card's name and power limit; returns
+    B1's launches by mode on rank 0 over the serving window."""
+    import torch
+
+    from repro_torch import api
+    card = card_name()
+    shape = CHECK_SHAPES[DIST_LATTICE]
+    rows = res["solvers"]
+    zero = {"hop_block_planar": 0, "dhat_planar_fused": 0,
+            "dhat_planar_fused_stream": 0}
+
+    # The deflation basis.
+    snap = res["basis_snapshot"]
+    built_iters = rows["lanczos"]["iterations"][0]
+    check(snap["restore_launches"] == zero and snap["restore_dhats"] == 0
+          and snap["equal"]
+          and rows["restored"]["iterations"][0] == built_iters,
+          f"four ranks basis restore: launches {snap['restore_launches']}, "
+          f"{snap['restore_dhats']} Dhats, bit-equal {snap['equal']}, "
+          f"iterations {rows['restored']['iterations']} (built basis: "
+          f"{built_iters})")
+    _, Uw_e, Uw_o, srcs = _weak_fields(shape, 1, device)
+    one = api.WilsonMatrix.bind(Uw_e, Uw_o, WEAK_KAPPA, backend="cuda_hop")
+    with DhatCount() as count:
+        t0 = time.perf_counter()
+        state = one.ensure_deflation(
+            DEFLATION_RANK, "lanczos", checkpoint=str(snapdir / "basis"),
+            lanczos_iters=DIST_LANCZOS_ITERS)
+        torch.cuda.synchronize()
+        one_restore = time.perf_counter() - t0
+    check(count.launches == zero and all(
+              torch.equal(a.cpu(), b)
+              for a, b in zip(state.basis, snap["gathered"])),
+          f"one process restoring the four-rank basis: launches "
+          f"{count.launches}, not bit-equal to the gathered basis")
+    one_iters = int(api.SolveSession(one, api.SolveSpec(
+        method="cgnr", tol=1e-6, max_iters=2000,
+        deflate_rank=DEFLATION_RANK, deflate_iters=DIST_LANCZOS_ITERS))
+        .solve(*srcs[0])[2].iterations)
+    check(abs(one_iters - rows["restored"]["iterations"][0][0]) <= 1,
+          f"one process's deflated solve on the restored basis: "
+          f"{one_iters} iterations (four ranks: "
+          f"{rows['restored']['iterations'][0]})")
+    del one, state
+    mb = snap["bytes_per_rank"] / 1e6
+    print(f"four ranks: basis snapshot (rank {DEFLATION_RANK}, "
+          f"{snap['filled']} filled, {mb:.1f} MB per rank, "
+          f"{4 * mb:.1f} MB in all): save "
+          + ", ".join(f"{t:.3f}" for t in snap["save_s"])
+          + f" s inside the {snap['build_s']:.3f} s Lanczos build, restore "
+          f"by a rebind {snap['restore_s']:.3f} s (no launch; deflated "
+          f"solve {rows['restored']['iterations'][0]} iterations, built "
+          f"basis {built_iters}); one process on cuda_hop restores it in "
+          f"{one_restore:.3f} s, bit-equal, {one_iters} iterations; card "
+          f"{card}", flush=True)
+
+    # The refinement snapshot.
+    ref = res["refined_resume"]
+    full = rows["refined f32 x1"]["outer"][0]
+    want = {"halo": 2 * ref["dhats"], "periodic": 0}
+    check(ref["part_outer"] == DIST_RESUME_AT and not ref["part_converged"]
+          and ref["converged"] and ref["outer"] == full
+          and not ref["escalations"] and ref["schur"] <= REFINED_TOL
+          and ref["rel"] <= 10 * REFINED_TOL and ref["b1_modes"] == want
+          and ref["launches"] == dict(zero, hop_block_planar=want["halo"]),
+          f"four ranks refined resume: stopped at {ref['part_outer']} "
+          f"(converged {ref['part_converged']}), resumed to "
+          f"{ref['outer']} outer passes (uninterrupted {full}), "
+          f"escalations {ref['escalations']}, Schur {ref['schur']:.2e}, "
+          f"full-lattice {ref['rel']:.2e}, B1 {ref['b1_modes']} for "
+          f"{ref['dhats']} Dhats")
+    print(f"four ranks: refined f32 x1 stopped after {ref['part_outer']} "
+          f"outer passes ({ref['walls'][0] * 1e3:.1f} ms) and resumed to "
+          f"{ref['outer']} in all ({ref['walls'][1] * 1e3:.1f} ms; "
+          f"uninterrupted {full}); Schur {ref['schur']:.2e}, full-lattice "
+          f"{ref['rel']:.2e}; {ref['bytes_per_rank'] / 1e6:.2f} MB per "
+          f"rank per snapshot, save "
+          + ", ".join(f"{t * 1e3:.1f}" for t in ref["save_s"])
+          + " ms, restore "
+          + ", ".join(f"{t * 1e3:.1f}" for t in ref["restore_s"])
+          + f" ms; card {card}", flush=True)
+
+    # Serving.
+    served = res["serving"]
+    lead = served[0]
+    U, U_e, U_o, ee, eo, _ = _dist_fields(shape, DIST_SERVED, device)
+    sess = api.SolveSession(
+        api.WilsonMatrix.bind(U_e, U_o, KAPPA, backend="cuda_hop"),
+        api.SolveSpec(method="cgnr", tol=1e-6))
+    single = [int(k) for k in sess.solve(ee, eo)[2].iterations]
+    check(all(lead["converged"]) and max(lead["rels"]) <= 1e-5
+          and all(abs(a - b) <= 1
+                  for a, b in zip(lead["iterations"], single)),
+          f"four ranks serving: converged {lead['converged']}, "
+          f"full-lattice residuals max {max(lead['rels']):.2e}, "
+          f"iterations {lead['iterations']} (one process {single})")
+    for r, row in enumerate(served):
+        halo = 2 * row["dhats"] + 2 * row["batches"]
+        check(row["failed"] == 0 and row["batches"] == lead["batches"]
+              and row["traces"] == row["keys"] == len(DIST_SERVE_BUCKETS)
+              and row["b1_modes"] == {"halo": halo, "periodic": 0}
+              and row["launches"] == dict(zero, hop_block_planar=halo),
+              f"four ranks serving, rank {r}: failed {row['failed']}, "
+              f"batches {row['batches']} (rank 0: {lead['batches']}), "
+              f"builds {row['traces']} for {row['keys']} keys, B1 "
+              f"{row['b1_modes']} for {row['dhats']} Dhats; launches "
+              f"{row['launches']}")
+    p50, p99 = _latency_ms(lead["latency_s"])
+    print(f"four ranks: served {DIST_SERVED} single-source requests at "
+          f"once ({DIST_LATTICE}, cgnr 1e-6, fused, max block 4): "
+          f"{DIST_SERVED / lead['wall_s']:.2f} requests/s, latency p50 "
+          f"{p50:.1f} ms p99 {p99:.1f} ms, {lead['batches']} batches of "
+          f"{lead['mean_batch_columns']:.2f} columns; iterations "
+          f"{lead['iterations']} (one process {single}); full-lattice "
+          f"residual max {max(lead['rels']):.2e}; B1 halo launches per "
+          f"batch by rank "
+          + str([row["b1_modes"]["halo"] / row["batches"] for row in served])
+          + f" ({[row['dhats'] for row in served]} Dhats); builds "
+          f"{lead['traces']} for {lead['keys']} keys on every rank; card "
+          f"{card}", flush=True)
+    return lead["b1_modes"]
 
 
 def _serving_want(count, stream, batches):
@@ -3169,6 +3512,10 @@ def main(argv=None):
     kernels[0]["launches_four_rank_solvers"] = four["b1_modes"]
     check(four["b1_modes"]["halo"] > 0,
           "B1 made no halo-mode launch on the four-rank solver paths")
+    # The daemon serving the split lattice: rank 0's B1 launches there.
+    kernels[0]["launches_four_rank_serving"] = four["serving_b1_modes"]
+    check(four["serving_b1_modes"]["halo"] > 0,
+          "B1 made no halo-mode launch serving the split lattice")
     kernels[0]["slabs"] = [
         {"lattice": lattice, "nrhs": nrhs, **row}
         for (lattice, nrhs, _, _, _), row in slab_rows.items()]

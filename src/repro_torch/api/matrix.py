@@ -221,12 +221,12 @@ class WilsonMatrix:
         ``checkpoint`` names a :class:`repro_torch.resilience.
         BasisSnapshot` directory: a basis of matching shapes found there
         is restored instead of built, and recycle harvests are saved as
-        they land; it is refused on a split lattice
-        (:meth:`require_one_rank`).
+        they land.  On a split lattice every rank saves and restores its
+        block of one global snapshot (``ops.shard``), on a file system
+        the ranks share, so that one process and the ranks read each
+        other's snapshots.
         """
         from ..core import solver as _solver
-        if checkpoint is not None:
-            self.require_one_rank("a deflation basis snapshot (checkpoint=)")
         rank = int(rank)
         if rank < 1:
             raise ValueError(f"deflation rank must be >= 1; got {rank}")
@@ -263,7 +263,7 @@ class WilsonMatrix:
         snap = None
         if checkpoint is not None:
             from ..resilience import BasisSnapshot
-            snap = BasisSnapshot(checkpoint)
+            snap = BasisSnapshot(checkpoint, shard=ops.shard)
         template = deflate.empty_basis(rank, v0)
         restored = snap.resume(template) if snap is not None else None
         if mode == "lanczos":
@@ -308,15 +308,6 @@ class WilsonMatrix:
         """Whether a native vector is one rank's block of a lattice
         split between several ranks."""
         return self.ops.group_sum is not None
-
-    def require_one_rank(self, what: str) -> None:
-        """Raise ``NotImplementedError`` for ``what`` on a lattice split
-        between several ranks (not ported there yet: the basis and
-        refinement snapshots)."""
-        if self.multi_rank:
-            raise NotImplementedError(
-                f"{what} is not ported for a lattice split between "
-                "several ranks (ROADMAP Queue A); solve without it there")
 
     @property
     def domain(self) -> str:

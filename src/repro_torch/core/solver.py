@@ -1050,7 +1050,10 @@ def make_refined_solve(bops, U64_e, U64_o, kappa: float, *,
     exchange per hop), every norm and the inner solves are summed over
     the ranks (``bops.group_sum``), each correction is encoded and
     decoded by the rank-local codec, and the solution is gathered once,
-    at the end.  A snapshot is refused there.
+    at the end.  A ``snapshot`` there saves and resumes each rank's
+    complex128 block of one global iterate
+    (:meth:`repro_torch.resilience.RefinementSnapshot.for_shard`), in the
+    one process's files: no gather.
     """
     from . import evenodd
 
@@ -1067,10 +1070,7 @@ def make_refined_solve(bops, U64_e, U64_o, kappa: float, *,
         hop_oe64 = _maybe_map(lambda v: evenodd.hop_oe(U64_e, U64_o, v))
     else:
         if snapshot is not None:
-            raise NotImplementedError(
-                "a refinement snapshot is not ported for a lattice split "
-                "between several ranks (ROADMAP Queue A); solve without it "
-                "there")
+            snapshot = snapshot.for_shard(shard)
         from ..distributed import qcd
         # Batch-polymorphic on the block: no vmap around the exchanges.
         hop_oe64, hop_eo64, dhat_blk = qcd.make_block_oracle(shard, U64_e,

@@ -6,6 +6,9 @@ over HTTP, on one GPU.
         --port 8787                                   # cuda, auto
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --lattice wilson-8x8x8x8 --device cpu --selftest 8
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --backend distributed --lattice wilson-8x8x8x8 --device cpu \
+        --selftest 4                       # a lattice split over 4 ranks
 
 Binds one gauge configuration into a :class:`repro_torch.api.
 WilsonMatrix`, registers it with a :class:`repro_torch.serving.
@@ -27,27 +30,49 @@ request converged) and returns nonzero if one fails; it prints
 ``cuda_fused`` on ``cuda``, ``torch_ref`` on ``cpu``).  The reference's
 ``--donate`` has no counterpart (PyTorch donates no buffers) and is
 refused.
+
+``--backend distributed`` (``--overlap`` as ``launch/solve.py`` takes
+it) splits the lattice over T between the ranks of the process group:
+under ``torchrun`` the CLI joins one (NCCL on ``cuda:LOCAL_RANK``, gloo
+with ``--device cpu``; an initialised default group is used as it is),
+with a timeout of :data:`GROUP_TIMEOUT`, after which a rank that died
+raises on the others instead of hanging them.  Every rank binds and
+registers the same matrix; rank 0 serves HTTP (or runs the selftest)
+and prints, the others follow its batches
+(:meth:`repro_torch.serving.PropagatorDaemon.follow`), and with
+``--selftest`` every rank exits with rank 0's verdict.
 """
 from __future__ import annotations
 
 import argparse
 import asyncio
+import datetime
 import json
+import os
 import sys
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
+import torch.distributed as dist
 
 from .. import api, configs, resolve_device
 from ..core import evenodd, su3
+from ..distributed import qcd
+from ..kernels import build
 from ..serving import (AdmissionPolicy, BatchingPolicy, HttpServerThread,
                        PropagatorDaemon, SessionPool, encode_array,
                        serve_http)
 
-#: the backends a daemon serves on (one process, one device)
+#: the backends a daemon serves on (``distributed``: a lattice split
+#: between the ranks of the process group)
 SERVED_BACKENDS = ("torch_ref", "cuda_hop", "cuda_fused",
-                   "cuda_fused_stream")
+                   "cuda_fused_stream", "distributed")
+#: the timeout of the process group the CLI joins: the longest a rank
+#: waits for the others in one collective (kernel builds at warmup
+#: included) before it raises; the daemon's idle heartbeats
+#: (``serving.daemon.HEARTBEAT_S``) come far more often.
+GROUP_TIMEOUT = datetime.timedelta(minutes=10)
 
 
 def _parse_lattice(s: str):
@@ -64,17 +89,28 @@ def _parse_lattice(s: str):
     return parts
 
 
-def _build_daemon(args, device) -> PropagatorDaemon:
+def _build_daemon(args, device, group=None) -> PropagatorDaemon:
+    """Bind the gauge and register it; on a split lattice every rank
+    does the same (``group``)."""
     shape = _parse_lattice(args.lattice)
     gen = torch.Generator().manual_seed(args.seed)
     U = (su3.weak_gauge(gen, shape, eps=args.weak_eps, device=device)
          if args.weak_eps else su3.random_gauge(gen, shape, device=device))
     Ue, Uo = evenodd.pack_gauge(U)
+    opts = ()
+    bind_opts = {}
+    if args.backend == "distributed":
+        bind_opts = {"partition": qcd.QCDPartition(group=group)}
+        if args.overlap:
+            opts = (("overlap", qcd.normalize_overlap(
+                {"on": True, "off": False}.get(args.overlap,
+                                               args.overlap))),)
     matrix = api.WilsonMatrix.bind(
         Ue, Uo, args.kappa,
         backend=api.BackendSpec(name=args.backend,
-                                gauge_compression=args.gauge_compression),
-        validate=args.validate, fallback=args.fallback)
+                                gauge_compression=args.gauge_compression,
+                                opts=opts),
+        validate=args.validate, fallback=args.fallback, **bind_opts)
     buckets = tuple(int(b) for b in args.buckets.split(","))
     daemon = PropagatorDaemon(
         pool=SessionPool(capacity=args.pool_capacity),
@@ -83,14 +119,18 @@ def _build_daemon(args, device) -> PropagatorDaemon:
                                 buckets=buckets),
         admission=AdmissionPolicy(
             max_queue_depth=args.max_queue_depth,
-            default_timeout_s=args.timeout_s or None))
+            default_timeout_s=args.timeout_s or None),
+        group=group)
     spec = api.SolveSpec(method=args.method, tol=args.tol,
                          max_iters=args.max_iters)
     daemon.register(args.name, matrix,
                     warmup_spec=spec if args.warmup else None)
-    print(f"registered {args.name!r}: lattice {shape}, backend "
-          f"{matrix.backend.name}, kappa {args.kappa}, device {device}",
-          flush=True)
+    if daemon.rank == 0:
+        ranks = "" if group is None else \
+            f", {dist.get_world_size(group)} ranks"
+        print(f"registered {args.name!r}: lattice {shape}, backend "
+              f"{matrix.backend.name}, kappa {args.kappa}, device "
+              f"{device}{ranks}", flush=True)
     return daemon
 
 
@@ -184,6 +224,11 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda without a GPU "
                          "raises")
+    ap.add_argument("--overlap", default="",
+                    choices=["", "fused", "split", "interior", "on", "off"],
+                    help="distributed backend's halo schedule, as "
+                         "launch/solve.py takes it; only with --backend "
+                         "distributed")
     ap.add_argument("--gauge-compression", default="none",
                     choices=["none", "two_row", "minimal"])
     ap.add_argument("--validate", default="none",
@@ -228,12 +273,43 @@ def main(argv=None) -> int:
                          "in-process, assert coalescing invariants, "
                          "exit")
     args = ap.parse_args(argv)
+    if args.overlap and args.backend != "distributed":
+        ap.error("--overlap only applies to --backend distributed")
 
     device = resolve_device(args.device)
-    daemon = _build_daemon(args, device)
+    group, own = None, False
+    if dist.is_initialized():
+        group = dist.group.WORLD
+    elif "WORLD_SIZE" in os.environ:       # under torchrun: one group
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+            torch.cuda.set_device(device)
+        dist.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo",
+            timeout=GROUP_TIMEOUT)
+        group, own = dist.group.WORLD, True
+        if device.type == "cuda":
+            # Rank 0 builds the kernels before any rank needs one: four
+            # ranks that each built them inside their first served batch
+            # hung over NCCL on four H100s, where a prebuilt set served.
+            if dist.get_rank() == 0:
+                build.build_all()
+            dist.barrier()
+    try:
+        return _serve(args, device, group)
+    finally:
+        if own:
+            dist.destroy_process_group()
+
+
+def _serve(args, device, group) -> int:
+    daemon = _build_daemon(args, device, group)
+    if daemon.rank != 0:
+        daemon.follow()
+        return _verdict(0, group, device) if args.selftest else 0
     daemon.start()
     if args.selftest:
-        return _selftest(daemon, args)
+        return _verdict(_selftest(daemon, args), group, device)
 
     print(f"serving on http://{args.host}:{args.port} "
           f"(POST /v1/solve, GET /v1/metrics, GET /v1/healthz)",
@@ -246,6 +322,17 @@ def main(argv=None) -> int:
         daemon.drain()
         print(json.dumps(daemon.metrics(), indent=2, default=str))
     return 0
+
+
+def _verdict(code: int, group, device) -> int:
+    """The selftest's exit code, the same on every rank: the most of
+    every rank's (rank 0's verdict, the others' 0)."""
+    if group is None or dist.get_world_size(group) == 1:
+        return code
+    nccl = dist.get_backend(group) == "nccl"
+    flag = torch.tensor([code], device=device if nccl else "cpu")
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=group)
+    return int(flag[0])
 
 
 if __name__ == "__main__":

@@ -32,6 +32,23 @@ front end (:func:`serve_http`) is a thin JSON/npy codec over exactly
 this lifecycle (stdlib only, no web framework): it decodes to numpy and
 encodes the solutions through ``.cpu().numpy()``.
 
+A lattice split between the ranks of a ``torch.distributed`` group
+(``group=``) is served SPMD: every rank builds a daemon and registers
+the same names, bound on the same partition, in the same order (so that
+LRU eviction stays identical without shipping links), and warms the
+same buckets.  Rank 0 alone takes requests (``submit``, the queue, the
+HTTP listener); its dispatcher broadcasts each batch (the entry's name,
+the spec, the request bounds and the padded global sources) before it
+solves, and the other ranks run the same solve in
+:meth:`PropagatorDaemon.follow`, each cutting its block through the
+backend's ``to_domain``.  After every batch the ranks sum a failure
+flag, so that a batch that fails on any rank fails on rank 0 too; an
+idle dispatcher broadcasts a heartbeat every :data:`HEARTBEAT_S`, and
+drain or close broadcasts the stop that ends the followers.  A rank
+that dies turns into an error on the others at the process group's
+``timeout`` (``launch/serve.py`` sets it), which must exceed
+:data:`HEARTBEAT_S`.
+
 The reference's buffer donation (``donate=``, ``SolveSpec.
 donate_rhs``) has no counterpart: PyTorch frees the batch temporaries
 as soon as the solve drops them.  :func:`spec_from_json` accepts a wire
@@ -53,6 +70,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..api import SolveSpec, WilsonMatrix
 from .policy import (AdmissionPolicy, BadRequestError, BatchingPolicy,
@@ -65,6 +83,10 @@ __all__ = ["PropagatorDaemon", "RequestResult", "serve_http",
            "spec_from_json"]
 
 _UNSET = object()
+
+#: Seconds between the heartbeats an idle dispatcher broadcasts to the
+#: followers of a split lattice (well under any process group timeout).
+HEARTBEAT_S = 10.0
 
 
 @dataclasses.dataclass
@@ -132,12 +154,17 @@ class PropagatorDaemon:
     raise, never wait); results arrive on ``concurrent.futures.Future``
     objects, so both threads and asyncio callers
     (``asyncio.wrap_future``) consume them natively.
+
+    ``group`` (a ``torch.distributed`` group of more than one rank)
+    serves matrices split between its ranks, as the module docstring
+    says: rank 0 runs :meth:`start` and :meth:`submit`, every other rank
+    :meth:`follow`.
     """
 
     def __init__(self, pool: Optional[SessionPool] = None,
                  batching: Optional[BatchingPolicy] = None,
                  admission: Optional[AdmissionPolicy] = None, *,
-                 clock=time.monotonic):
+                 clock=time.monotonic, group=None):
         self.pool = pool if pool is not None else SessionPool()
         self.batching = batching if batching is not None \
             else BatchingPolicy()
@@ -154,6 +181,16 @@ class PropagatorDaemon:
         self._metrics = {"submitted": 0, "completed": 0, "failed": 0,
                          "shed": 0, "timed_out": 0, "batches": 0,
                          "batch_fill_hist": {}}
+        spmd = group is not None and dist.get_world_size(group) > 1
+        self.group = group if spmd else None
+        self.rank = dist.get_rank(group) if spmd else 0
+        self._stop_sent = False
+        if spmd:
+            self._src = dist.get_global_rank(group, 0)
+            # Messages travel on the device NCCL needs, else on the host.
+            self._comm = (torch.device("cuda", torch.cuda.current_device())
+                          if dist.get_backend(group) == "nccl"
+                          else torch.device("cpu"))
 
     # --- lifecycle -----------------------------------------------------
 
@@ -161,7 +198,18 @@ class PropagatorDaemon:
                  warmup_spec: Optional[SolveSpec] = None,
                  warmup_buckets=None):
         """Register a bound matrix; optionally warm its buckets so the
-        first live request pays Krylov time, not first-use costs."""
+        first live request pays Krylov time, not first-use costs.  A
+        matrix split between ranks must be bound on the daemon's group,
+        and every rank registers it (warmup included) in the same
+        order."""
+        if isinstance(matrix, WilsonMatrix) and matrix.multi_rank and (
+                self.group is None or dist.get_process_group_ranks(
+                    matrix.ops.shard.grid.group)
+                != dist.get_process_group_ranks(self.group)):
+            raise BadRequestError(
+                f"matrix {name!r} is split between the ranks of another "
+                "group than the daemon's; build the daemon with that "
+                "group")
         entry = self.pool.register(name, matrix)
         if warmup_spec is not None:
             buckets = (self.batching.buckets if warmup_buckets is None
@@ -170,6 +218,7 @@ class PropagatorDaemon:
         return entry
 
     def start(self) -> "PropagatorDaemon":
+        self._require_rank0("start")
         if self._thread is not None:
             raise RuntimeError("daemon already started")
         self._thread = threading.Thread(
@@ -187,6 +236,8 @@ class PropagatorDaemon:
         if self._thread is not None:
             self._thread.join(timeout)
             self._thread = None
+        elif self.group is not None and self.rank == 0:
+            self._send_stop()      # never started: release the followers
 
     def close(self) -> None:
         """Hard shutdown: queued requests fail with DrainingError."""
@@ -218,8 +269,10 @@ class PropagatorDaemon:
         deadline.  Typed rejections (:class:`ShedError`,
         :class:`DrainingError`, :class:`UnknownMatrixError`,
         :class:`BadRequestError`) raise here, synchronously; a rejected
-        request never holds a future.
+        request never holds a future.  On a rank other than 0 of a split
+        lattice ``submit`` raises :class:`ServingError`.
         """
+        self._require_rank0("submit")
         if self._draining:
             raise DrainingError("daemon is draining; no new requests")
         entry = self.pool.entry(str(name))  # typed 404 before queueing
@@ -291,20 +344,100 @@ class PropagatorDaemon:
             spec = dataclasses.replace(spec, nrhs=None)
         return spec
 
+    def _require_rank0(self, what: str) -> None:
+        if self.rank != 0:
+            raise ServingError(
+                f"rank {self.rank} of a split lattice cannot {what}: rank "
+                "0 takes the requests and the others run follow()")
+
+    # --- the ranks of a split lattice ----------------------------------
+
+    def _bcast_object(self, obj=None):
+        box = [obj]
+        dist.broadcast_object_list(box, src=self._src, group=self.group,
+                                   device=self._comm)
+        return box[0]
+
+    def _bcast_sources(self, etas=None, shape=None, dtype=None):
+        """Rank 0's stacked ``(eta_e, eta_o)`` block on every rank (on
+        the message device)."""
+        buf = (etas.to(self._comm).contiguous() if etas is not None
+               else torch.empty(shape, dtype=dtype, device=self._comm))
+        dist.broadcast(torch.view_as_real(buf) if buf.is_complex() else buf,
+                       src=self._src, group=self.group)
+        return buf
+
+    def _failures(self, failed: bool) -> int:
+        """The number of ranks whose part of a batch failed (a sum over
+        the group, so every rank gets the same count)."""
+        flag = torch.tensor([float(failed)], device=self._comm)
+        dist.all_reduce(flag, group=self.group)
+        return int(flag[0])
+
+    def _send_stop(self) -> None:
+        if not self._stop_sent:
+            self._stop_sent = True
+            self._bcast_object(("stop",))
+
+    def follow(self) -> None:
+        """Ranks other than 0 of a split lattice: run every batch rank
+        0's dispatcher broadcasts through the same ``solve_block``, until
+        its drain or close broadcasts the stop.  A failed batch is
+        counted, reported to rank 0 through the failure sum, and the loop
+        goes on."""
+        if self.group is None or self.rank == 0:
+            raise ServingError(
+                "follow() runs on the ranks other than 0 of a daemon "
+                "built with a group")
+        while True:
+            msg = self._bcast_object()
+            if msg[0] == "stop":
+                return
+            if msg[0] != "batch":
+                continue                  # a heartbeat
+            _, name, spec, bounds, bucket, dtype, shape = msg
+            etas = self._bcast_sources(shape=(2,) + tuple(shape),
+                                       dtype=getattr(torch, dtype))
+            entry, err = None, None
+            try:
+                entry = self.pool.entry(name)
+                device = entry.matrix.device
+                with (torch.cuda.device(device) if device.type == "cuda"
+                      else contextlib.nullcontext()):
+                    etas = etas.to(device)
+                    entry.session.solve_block(etas[0], etas[1], spec,
+                                              bounds=bounds)
+            except Exception as exc:  # noqa: BLE001 — reported to rank 0
+                err = exc
+            if self._failures(err is not None):
+                with self._mlock:
+                    self._metrics["failed"] += len(bounds)
+                continue
+            self._account(entry, len(bounds), bounds[-1][1], bucket)
+
     # --- dispatcher ----------------------------------------------------
 
     def _run(self) -> None:
-        while True:
-            got = self.queue.wait_ready(stop_event=self._stop)
-            if got is None:
-                return
-            key, reqs = got
-            if reqs:
-                self._run_batch(key, reqs)
+        idle_s = HEARTBEAT_S if self.group is not None else None
+        try:
+            while True:
+                got = self.queue.wait_ready(stop_event=self._stop,
+                                            idle_s=idle_s)
+                if got is None:
+                    return
+                key, reqs = got
+                if reqs:
+                    self._run_batch(key, reqs)
+                elif key is None and self.group is not None:
+                    self._bcast_object(("idle",))
+        finally:
+            if self.group is not None:
+                self._send_stop()
 
     def _run_batch(self, key, reqs) -> None:
         name, spec = key[0], key[1]
         t0 = self.clock()
+        sent, err = False, None
         try:
             entry = self.pool.entry(name)
             device = entry.matrix.device
@@ -327,18 +460,32 @@ class PropagatorDaemon:
                 for r in reqs:
                     bounds.append((lo, lo + r.nrhs))
                     lo += r.nrhs
+                if self.group is not None:
+                    self._bcast_object(
+                        ("batch", name, spec, bounds, bucket,
+                         str(eta_e.dtype).replace("torch.", ""),
+                         tuple(eta_e.shape)))
+                    sent = True
+                    self._bcast_sources(torch.stack([eta_e, eta_o]))
                 xi_e, xi_o, res, parts = entry.session.solve_block(
                     eta_e, eta_o, spec, bounds=bounds)
                 rows = [tuple(_columns(getattr(p, f)) for f in (
                     "iterations", "residual", "converged", "diverged"))
                     for p in parts]
         except Exception as exc:  # noqa: BLE001 — fan failure out
+            err = exc
+        if sent:
+            others = self._failures(err is not None) - (err is not None)
+            if err is None and others:
+                err = ServingError(f"the batch failed on {others} other "
+                                   "rank(s) of the split lattice")
+        if err is not None:
             # The session already walked any armed fallback chain; an
             # exception here is terminal for THIS batch only.  The pool
             # entry survives (possibly degraded) and the daemon keeps
             # serving.
             for r in reqs:
-                r.future.set_exception(exc)
+                r.future.set_exception(err)
             with self._mlock:
                 self._metrics["failed"] += len(reqs)
             return
@@ -366,12 +513,16 @@ class PropagatorDaemon:
             }
             r.future.set_result(
                 RequestResult(xi_e[lo:hi], xi_o[lo:hi], part, stats))
-        entry.requests += len(reqs)
+        self._account(entry, len(reqs), cols, bucket)
+
+    def _account(self, entry, n_requests: int, cols: int,
+                 bucket: int) -> None:
+        entry.requests += n_requests
         entry.batches += 1
         entry.columns += cols
         entry.padded_columns += bucket - cols
         with self._mlock:
-            self._metrics["completed"] += len(reqs)
+            self._metrics["completed"] += n_requests
             self._metrics["batches"] += 1
             hist = self._metrics["batch_fill_hist"]
             hist[str(cols)] = hist.get(str(cols), 0) + 1

@@ -90,14 +90,13 @@ class SessionPool:
 
     def register(self, name: str, matrix: WilsonMatrix) -> PoolEntry:
         """Add (or replace) a matrix under ``name``; may evict LRU.  A
-        matrix on a lattice split between ranks is refused
-        (:meth:`WilsonMatrix.require_one_rank`): one daemon serves from
-        one process."""
+        matrix on a lattice split between ranks is an entry like any
+        other: every rank registers it in the same order, so that every
+        rank's pool evicts alike."""
         if not isinstance(matrix, WilsonMatrix):
             raise BadRequestError(
                 f"pool entries are bound WilsonMatrix objects; got "
                 f"{type(matrix).__name__}")
-        matrix.require_one_rank("serving (a SessionPool entry)")
         with self._lock:
             entry = PoolEntry(str(name), matrix)
             self._entries.pop(entry.name, None)

@@ -164,13 +164,16 @@ class RequestQueue:
         return due_key, next_due
 
     def wait_ready(self, *, stop_event: threading.Event,
-                   poll_s: float = 0.05
+                   poll_s: float = 0.05, idle_s: Optional[float] = None
                    ) -> Optional[Tuple[object, List[SolveRequest]]]:
         """Block until a batch is due (or ``stop_event`` is set and the
-        queue is empty — the graceful-drain exit).  Expired requests
-        are failed here, on the dispatcher thread, so producers never
-        observe a half-timed-out queue."""
+        queue is empty — the graceful-drain exit; or, with ``idle_s``,
+        that many seconds passed with no batch due, which returns
+        ``(None, [])``).  Expired requests are failed here, on the
+        dispatcher thread, so producers never observe a half-timed-out
+        queue."""
         with self.cond:
+            start = self.clock()
             while True:
                 now = self.clock()
                 for r in self._expire_locked(now):
@@ -183,6 +186,8 @@ class RequestQueue:
                     return due_key, self._pop_batch_locked(due_key)
                 if stop_event.is_set() and not self._pending:
                     return None
+                if idle_s is not None and now - start >= idle_s:
+                    return None, []
                 timeout = poll_s if next_due is None \
                     else max(1e-4, min(next_due - now, poll_s))
                 self.cond.wait(timeout)

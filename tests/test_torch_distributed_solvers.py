@@ -23,9 +23,10 @@ the same numpy inputs:
 * refined f32 and bf16 solves to 1e-10 (one source and a block of two),
   every column's f64 Schur residual <= 1e-10 and full-lattice residual
   in complex128 <= 1e-9, outer passes as one process's; a dead inner
-  operator escalating once, to f64, with the partition kept;
-* the basis and refinement snapshots and a serving pool entry, still
-  refused, naming ROADMAP Queue A.
+  operator escalating once, to f64, with the partition kept.
+
+The snapshots and serving on a split lattice are
+``tests/test_torch_split_snapshots_serving.py``'s.
 
 The f64 references are the port's own complex128 path.
 """
@@ -277,11 +278,3 @@ def test_four_rank_refined_escalation(fields, four_ranks):
     assert _full_rel(fields["U"], fields["eta_e"][0].astype(np.complex128),
                      fields["eta_o"][0].astype(np.complex128), xe, xo,
                      worker.KAPPA) <= 10 * worker.REFINED_TOL
-
-
-@pytest.mark.parametrize("index,what", [(0, "basis snapshot"),
-                                        (1, "refinement snapshot"),
-                                        (2, "serving")])
-def test_four_rank_left_out_paths_refused(four_ranks, index, what):
-    msg = four_ranks["refused"][index]
-    assert msg is not None and "ROADMAP Queue A" in msg and what in msg

@@ -8,17 +8,13 @@ reference and the one-process port (``torch.save``).  Every solve goes
 through a :class:`repro_torch.api.SolveSession` on the ``distributed``
 backend, whose local stencil on the CPU is the plain planar one.
 """
-import tempfile
-
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch import api
-from repro_torch.core import solver
 from repro_torch.distributed import qcd
 from repro_torch.resilience import dead_inner_ops
-from repro_torch.serving import SessionPool
 
 KAPPA = 0.13
 KAPPA_WEAK = 0.124
@@ -147,15 +143,4 @@ def _body(arr):
     xe, xo, res = sess.solve(e64[0], o64[0])
     out["escalated"] = (xe.numpy(), xo.numpy(), float(res.residual),
                         bool(res.converged), res.escalations)
-
-    # Left out on a split lattice: the snapshots, and serving.
-    with tempfile.TemporaryDirectory() as d:
-        out["refused"] = [
-            _raises(lambda: mw.ensure_deflation(4, "lanczos", checkpoint=d),
-                    NotImplementedError),
-            _raises(lambda: solver.make_refined_solve(
-                m.ops, U_e, U_o, KAPPA, snapshot=object()),
-                NotImplementedError),
-            _raises(lambda: SessionPool().register("split", m),
-                    NotImplementedError)]
     return out

@@ -5,7 +5,6 @@ the inputs (an ``.npz`` file) and the reference arrays, each rank of a
 2 x 2 grid runs :func:`run`, and rank 0 saves what the parent compares
 (``torch.save``).
 """
-import tempfile
 
 import numpy as np
 import torch
@@ -88,15 +87,6 @@ def _body(arr):
     out["solves"]["cgnr_block"] = (xe.numpy(), xo.numpy(),
                                   [int(k) for k in res.iterations])
 
-    # Not ported on a split lattice: a basis snapshot raises, naming the
-    # queue (block CG, deflation and refined solves answer there:
-    # tests/test_torch_distributed_solvers.py).
-    with tempfile.TemporaryDirectory() as d:
-        out["refused"] = [_raises(
-            lambda: api.SolveSession(m, api.SolveSpec(
-                deflate_rank=4, deflate_checkpoint=d)).solve(eta_e[0],
-                                                             eta_o[0]),
-            NotImplementedError)]
     out["errors"] = [
         _raises(lambda: part.local_extents(6, 5), ValueError),
         _raises(lambda: qcd.QCDPartition(
