@@ -37,6 +37,15 @@ Run from a checkout: it builds the CUDA kernels from
    max|plain|, one bf16 rounding step: B1 periodic on every check shape
    and halo mode on the halo shapes, B2 and B3 at FUSED_NRHS; the
    two-launch Dhat and B3 must equal B2 bit for bit;
+4c. runs the invariant gate's runtime checks on the card (``gate``,
+   ``repro_torch.analysis``: TJ1, TJ2, TJ4 and TJ6 at 4x4x4x8, f32 and
+   bf16, through B1, B2 and B3): no dtype change or codec call inside a
+   native solve of any backend and its host reads per iteration within
+   budget (printed), exact kernel calls per Dhat and per distributed
+   hop, one build per session key and pool bucket, every Krylov method
+   stopped by a non-finite operator; fails on any finding and on any
+   wrapper whose calls (what the gate counts on the CPU) differ from its
+   launches; prints its time beside the card's name and power limit;
 5. drives the main path, ``repro_torch.launch.solve.main`` with cgnr,
    tol 1e-6 and backend auto (which must resolve to cuda_fused), at
    wilson-16x16x16x16 and wilson-64x16x16x8, with the launch counters
@@ -150,7 +159,8 @@ Run from a checkout: it builds the CUDA kernels from
    of 100 launches after a warm-up, device time) beside its bound, its
    wall time per call with host work, and its plain version's; then
    times B3 against B2 at the points that set the ``auto`` rule
-   (``POLICY_POINTS``: wilson-16x16x16x16 with nrhs 1 and 12;
+   (``POLICY_POINTS``, from ``repro_torch.analysis.trace_checks``:
+   wilson-16x16x16x16 with nrhs 1 and 12;
    wilson-64x16x16x8 and wilson-64x32x32x16 with nrhs 1, 2, 4 and 12,
    and with one source in f64 and f32 with each link form), and the
    two-launch B1 Dhat at wilson-64x32x32x16, where the odd intermediate
@@ -169,7 +179,7 @@ Run from a checkout: it builds the CUDA kernels from
 
 It exits non-zero at the first failed phase.  The line before the last
 is a JSON object ``{"kernels": [...]}`` (with each kernel's launches on
-the block CG, deflation, resilience and serving paths, and B1's row the
+the block CG, deflation, resilience, serving and gate paths, and B1's row the
 16^4 x 200 timing, its launches by mode on the distributed path and on
 the four-rank solver paths, and its slab times); the last line is
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX or of the
@@ -230,17 +240,6 @@ SOLVE_POINTS = (("wilson-16x16x16x16", 1), ("wilson-16x16x16x16", 12),
 CUDA_HOP_LATTICE = "wilson-16x16x16x16"
 # The largest lattice of the configs, where B2's scratch overflows the L2.
 BIG_LATTICE = ("wilson-64x32x32x16", (32, 32, 32, 64))
-# (lattice, nrhs, dtype, gc) where B3 is timed against B2: the points
-# that set the auto policy's rule (kernels/ops.py), on both sides of it.
-POLICY_POINTS = tuple(
-    [("wilson-16x16x16x16", n, "f32", 18) for n in (1, 12)]
-    + [(lattice, n, "f32", 18) for lattice in ("wilson-64x16x16x8",
-                                               BIG_LATTICE[0])
-       for n in (1, 2, 4, 12)]
-    + [(lattice, 1, dtype, gc) for lattice in ("wilson-64x16x16x8",
-                                               BIG_LATTICE[0])
-       for dtype in ("f32", "f64") for gc in (18, 12, 8)
-       if (dtype, gc) != ("f32", 18)])
 # (lattice, nrhs, dtype, gc, halo) where B1 is timed beside its bound and
 # the parent's B1: the main lattices, the propagator's block, the largest
 # lattice with each link form and in f64, and halo mode (the parent has
@@ -799,15 +798,83 @@ def phase_bf16(device):
     return worst
 
 
+def phase_gate(device):
+    """The invariant gate's runtime checks on the card
+    (``repro_torch.analysis.trace_checks``), through the three kernels in
+    f32 and bf16: TJ1 (no dtype change or codec call inside a native
+    solve of every backend, host reads per iteration within budget),
+    TJ2 (kernel calls per Dhat by policy, link form and source count,
+    per distributed hop by overlap mode), TJ4 (one build per session key
+    and pool bucket) and TJ6 (every Krylov method stopped by a
+    non-finite operator).  Any finding fails the phase, and so does a
+    wrapper whose calls (the count the gate reads on the CPU) differ
+    from its launches.  Prints each solve's host reads per iteration
+    (each a device synchronisation here) and the phase's time beside the
+    card's name and power limit; returns each kernel's launches over the
+    phase."""
+    import torch
+
+    from repro_torch.analysis import trace_checks as tc
+    from repro_torch.kernels import counters
+    t0 = time.perf_counter()
+    reads, calls, builds, guard = {}, {}, {}, {}
+    findings = []
+    launched = {}
+    counters.reset_launch_counts()
+    for name, fn, kw in (
+            ("TJ1", tc.check_conversion_free, {"report": reads}),
+            ("TJ2", tc.check_kernel_counts, {"report": calls}),
+            ("TJ4", tc.check_build_budget,
+             {"report": builds, "dtypes": tc.DTYPES}),
+            ("TJ6", tc.check_nonfinite_guard,
+             {"report": guard, "dtypes": tc.DTYPES})):
+        before = dict(counters.LAUNCHES)
+        findings += fn(str(ROOT), device=device, **kw)
+        torch.cuda.synchronize()
+        check(counters.CALLS == counters.LAUNCHES
+              and counters.B1_MODE_CALLS == counters.B1_MODE_LAUNCHES,
+              f"gate {name}: calls {counters.CALLS} (B1 "
+              f"{counters.B1_MODE_CALLS}) are not the launches "
+              f"{counters.LAUNCHES} ({counters.B1_MODE_LAUNCHES})")
+        launched[name] = {k: v - before[k]
+                          for k, v in counters.LAUNCHES.items()}
+    seconds = time.perf_counter() - t0
+    print("gate TJ1 host reads per iteration (budget "
+          + ", ".join(f"{m}{' batched' if b else ''} {n}" for (m, b), n
+                      in tc.READS_PER_ITERATION.items()) + "): "
+          + "; ".join(f"{name} {dtype} {method}"
+                      f"{' batched' if batched else ''} {n:g}"
+                      for (name, dtype, method, batched), n
+                      in reads.items()), flush=True)
+    print(f"gate TJ2: {len(calls)} cases, every Dhat and hop with its "
+          f"exact calls, each call one launch; TJ4: " + ", ".join(
+              f"{what} {dtype} {got}"
+              for (what, dtype), got in builds.items())
+          + "; TJ6: applications "
+          f"after the first non-finite one " + ", ".join(
+              f"{m} {d}{' batched' if b else ''} {n}"
+              for (m, d, b), n in guard.items()), flush=True)
+    for f in findings:
+        print(f"gate finding: {f.render()}", flush=True)
+    check(not findings, f"gate: {len(findings)} finding(s)")
+    print(f"gate: no finding, launches {dict(counters.LAUNCHES)} (by check "
+          f"{launched}), {seconds:.1f} s on {card_name()}", flush=True)
+    return {"launches": dict(counters.LAUNCHES), "seconds": seconds,
+            "reads": reads}
+
+
 class DhatCount:
     """Counts, while entered, the ``Dhat`` applications at the policy
     entry point (``ops.apply_dhat_planar_any``): in all, by the dtype of
     their vector, and by their source count (``widths``: 1 for an
     unbatched vector); and those of the distributed operator
     (``dist_dhats``, at the functions ``qcd.make_dhat_fn`` returns); the
-    launch counters are set to 0 on entry and read on exit
-    (``launches``, and B1's by mode, ``b1_modes``), after a
-    synchronise."""
+    call and launch counters are set to 0 on entry and read on exit
+    (``launches``, and B1's by mode, ``b1_modes``; ``calls``, the
+    wrappers' calls, which the invariant gate counts on the CPU), after
+    a synchronise where CUDA exists; there every call must have been one
+    launch (a CPU rehearsal calls the plain versions and launches
+    nothing)."""
 
     def __enter__(self):
         from repro_torch.distributed import qcd
@@ -845,10 +912,18 @@ class DhatCount:
         from repro_torch.kernels import ops, wilson_stencil as ws
         ops.apply_dhat_planar_any = self._entry
         qcd.make_dhat_fn = self._make_dhat
-        if torch.cuda.is_available():
+        cuda = torch.cuda.is_available()
+        if cuda:
             torch.cuda.synchronize()
         self.launches = dict(ws.LAUNCHES)
         self.b1_modes = dict(ws.B1_MODE_LAUNCHES)
+        self.calls = dict(ws.CALLS)
+        if exc[0] is None and cuda:
+            check(self.calls == self.launches
+                  and dict(ws.B1_MODE_CALLS) == self.b1_modes,
+                  f"wrapper calls {self.calls} (B1 by mode "
+                  f"{dict(ws.B1_MODE_CALLS)}) are not the launches "
+                  f"{self.launches} ({self.b1_modes})")
         return False
 
 
@@ -2930,6 +3005,7 @@ def phase_times(device, paths, parent=None):
     point."""
     import torch
 
+    from repro_torch.analysis.trace_checks import POLICY_POINTS
     from repro_torch.kernels import geometry, ops, ref, wilson_stencil as ws
     rows = {}
     for lattice, _, _ in MAIN_LATTICES:
@@ -3394,6 +3470,7 @@ def main(argv=None):
              "dhat_planar_fused": timed("b2", phase_b2, device),
              "dhat_planar_fused_stream": timed("b3", phase_b3, device)}
     worst_bf16 = timed("bf16", phase_bf16, device)
+    gate = timed("gate", phase_gate, device)
     runs = timed("slice", phase_slice)
     runs2 = timed("slice2", phase_slice2)
     timed("cuda_hop", phase_cuda_hop)
@@ -3524,6 +3601,12 @@ def main(argv=None):
         row["launches_resilience"] = resilience["launches"][row["name"]]
         check(row["launches_resilience"] > 0,
               f"{row['name']} made no launch on the resilience path")
+    # The invariant gate's runtime checks on the card: each kernel's
+    # launches there (each one call the gate counts).
+    for row in kernels:
+        row["launches_gate"] = gate["launches"][row["name"]]
+        check(row["launches_gate"] > 0,
+              f"{row['name']} made no launch in the gate phase")
     # The serving path (the CLI selftest and the API runs): each kernel's
     # launches there.
     for row in kernels:

@@ -736,9 +736,12 @@ def blockcg_batched(op: Callable, b: torch.Tensor, x0=None, *,
     A column that leaves the active set has its ``S`` column zeroed and
     its ``x`` frozen bit for bit.  The guard mirrors :func:`cg_batched`
     (a non-finite source column is parked on zeros and ends
-    ``diverged``; a poisoned ``A p`` column is parked on zeros before
-    the mixing step), except that a stagnation restart rebuilds the
-    whole block.  ``recompute_every`` (0: ``BLOCKCG_RECOMPUTE_DEFAULT``)
+    ``diverged``), except where the columns share the Krylov space: a
+    poisoned ``A p`` column is parked on zeros before the mixing step
+    and stops the whole block, every active column ``diverged`` at its
+    last finite iterate (the reference parks it and runs on to
+    ``max_iters``: a deliberate divergence, logged in ROADMAP.md), and
+    a stagnation restart rebuilds the whole block.  ``recompute_every`` (0: ``BLOCKCG_RECOMPUTE_DEFAULT``)
     replaces the block by the true residual with a fresh QR; that
     iteration never counts toward a restart.  One host read per
     iteration (a second only where a column restarts).  The residual
@@ -800,10 +803,15 @@ def blockcg_batched(op: Callable, b: torch.Tensor, x0=None, *,
     (go,) = _any(live)
     while go and k < max_iters:
         ap = op(p)
+        poisoned = None
         if guard:
             # A direction the operator poisoned must not reach the
-            # mixing step (0 * NaN = NaN would spread it).
-            ap = _bwhere(torch.isfinite(_bnorm2(ap)), ap, zero_v)
+            # mixing step (0 * NaN = NaN would spread it); every column
+            # mixes every direction, so the whole block stops there,
+            # each active column diverged at its last finite iterate.
+            apfin = torch.isfinite(_bnorm2(ap))
+            poisoned = ~apfin.all()
+            ap = _bwhere(apfin, ap, zero_v)
         alpha, info = torch.linalg.inv_ex(ridged(_bgram(p, ap)))
         alpha = _nan_unless(info, alpha)
         if project is not None:
@@ -820,7 +828,7 @@ def blockcg_batched(op: Callable, b: torch.Tensor, x0=None, *,
         recomp = (k + 1) % recompute_every == 0
         restart = None
         if guard:
-            finite = torch.isfinite(rr1)
+            finite = torch.isfinite(rr1) & ~poisoned
             accept = active & finite
             x1 = _bwhere(accept, x1, x)
             rr1 = torch.where(accept, rr1, rr)

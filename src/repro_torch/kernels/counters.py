@@ -1,0 +1,55 @@
+"""Call and launch counters of the kernel wrappers B1, B2 and B3.
+
+:mod:`repro_torch.kernels.wilson_stencil` counts here, and re-exports
+these names: a caller that only reads the counts (the solve CLI's
+``kernel launches:`` line, the invariant gate) imports this module and
+no operator.
+
+* :data:`CALLS` — calls of each wrapper, counted at its top on any
+  device (on the CPU the wrapper runs its kernel's plain version);
+* :data:`LAUNCHES` — kernel launches on the card, counted after the
+  launch returned;
+* :data:`B1_MODE_CALLS` / :data:`B1_MODE_LAUNCHES` — B1's of each,
+  split by mode (periodic or halo).
+
+On the card every call launches once, so ``CALLS == LAUNCHES``; on the
+CPU ``LAUNCHES`` stays 0 and ``CALLS`` still counts what the card would
+launch.
+"""
+from __future__ import annotations
+
+__all__ = ["CALLS", "LAUNCHES", "B1_MODE_CALLS", "B1_MODE_LAUNCHES",
+           "count_call", "count_launch", "reset_launch_counts"]
+
+#: wrapper calls since the last :func:`reset_launch_counts`, any device
+CALLS = {"hop_block_planar": 0, "dhat_planar_fused": 0,
+         "dhat_planar_fused_stream": 0}
+#: kernel launches per wrapper since the last :func:`reset_launch_counts`
+LAUNCHES = dict(CALLS)
+#: B1's calls (``CALLS["hop_block_planar"]``) split by mode
+B1_MODE_CALLS = {"periodic": 0, "halo": 0}
+#: B1's launches (``LAUNCHES["hop_block_planar"]``) split by mode
+B1_MODE_LAUNCHES = dict(B1_MODE_CALLS)
+
+
+def _count(totals, modes, name: str, halo: bool) -> None:
+    totals[name] += 1
+    if name == "hop_block_planar":
+        modes["halo" if halo else "periodic"] += 1
+
+
+def count_call(name: str, halo: bool = False) -> None:
+    """One call of wrapper ``name`` (B1 in halo mode with ``halo``)."""
+    _count(CALLS, B1_MODE_CALLS, name, halo)
+
+
+def count_launch(name: str, halo: bool = False) -> None:
+    """One kernel launch of wrapper ``name``."""
+    _count(LAUNCHES, B1_MODE_LAUNCHES, name, halo)
+
+
+def reset_launch_counts() -> None:
+    """Set every call and launch count to 0."""
+    for counts in (CALLS, LAUNCHES, B1_MODE_CALLS, B1_MODE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0

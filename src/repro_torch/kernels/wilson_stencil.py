@@ -24,9 +24,11 @@ CUDA tensor launches the kernel or raises.  The kernels take float32,
 float64 and bfloat16 fields; bf16 is stored in bf16 (scratch and ring
 included) and computed in f32 registers, each stored tensor rounded
 once.  Another dtype raises ``TypeError``; nothing is upcast.
-:data:`LAUNCHES` counts kernel launches per wrapper, and
-:data:`B1_MODE_LAUNCHES` B1's launches by mode (periodic or halo);
-plain-version calls are not counted.
+:data:`CALLS` counts each wrapper's calls on any device and
+:data:`LAUNCHES` its kernel launches on the card (plain-version calls
+are not launches), :data:`B1_MODE_CALLS` / :data:`B1_MODE_LAUNCHES`
+B1's by mode (periodic or halo); the counters live in
+:mod:`repro_torch.kernels.counters`.
 """
 from __future__ import annotations
 
@@ -38,6 +40,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import build, ref
+from .counters import (B1_MODE_CALLS, B1_MODE_LAUNCHES, CALLS, LAUNCHES,
+                       count_call, count_launch, reset_launch_counts)
 from .geometry import (TileGeometry, check_geometry, hop_geometry,
                        stream_flag_words, tile_geometry)
 from .layout import (GAUGE_COMPS, GAUGE_COMPS_MINIMAL, GAUGE_COMPS_TWO_ROW,
@@ -47,7 +51,8 @@ __all__ = ["hop_block_planar", "dhat_planar_fused",
            "dhat_planar_fused_stream", "hop_traffic_model",
            "dhat_stream_traffic_model", "stream_ring_bytes",
            "STREAM_WINDOW_ROWS", "STREAM_RING_ROWS", "HOP_FLOPS_PER_SITE",
-           "LAUNCHES", "B1_MODE_LAUNCHES", "reset_launch_counts",
+           "CALLS", "LAUNCHES", "B1_MODE_CALLS", "B1_MODE_LAUNCHES",
+           "reset_launch_counts",
            "stream_flags"]
 
 # Flops per lattice site of one hopping block application, QXS convention.
@@ -64,12 +69,6 @@ LINKS_EXPANDED_PER_SITE = 8
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
 
-#: kernel launches per wrapper since the last :func:`reset_launch_counts`
-LAUNCHES = {"hop_block_planar": 0, "dhat_planar_fused": 0,
-            "dhat_planar_fused_stream": 0}
-#: B1's launches (``LAUNCHES["hop_block_planar"]``) split by mode
-B1_MODE_LAUNCHES = {"periodic": 0, "halo": 0}
-
 # Ring rows of odd-intermediate t-planes of the streaming kernel B3: 3
 # live rows cover the +-t reach of the second hopping block, +1 is the
 # row being produced while the previous three are consumed.  The least
@@ -81,12 +80,6 @@ STREAM_WINDOW_ROWS = 4
 # or faster at every point timed, 2x at wilson-16x16x16x16 with one
 # source.
 STREAM_RING_ROWS = 8
-
-
-def reset_launch_counts() -> None:
-    for counts in (LAUNCHES, B1_MODE_LAUNCHES):
-        for k in counts:
-            counts[k] = 0
 
 
 def hop_traffic_model(Tl: int, Zl: int, Y: int, Xh: int, *,
@@ -235,6 +228,7 @@ def hop_block_planar(u_out_p: torch.Tensor, u_in_p: torch.Tensor,
     f32, the result rounded to bf16 once, after the axpy).  Tiles:
     :func:`geometry.hop_geometry`.
     """
+    count_call("hop_block_planar", halo)
     spinors = (src_p,) if axpy is None else (src_p, axpy[1])
     T, Z, Y, Xh, nrhs, gc = _check_fields((u_out_p, u_in_p), spinors,
                                           what="hop_block_planar",
@@ -260,8 +254,7 @@ def hop_block_planar(u_out_p: torch.Tensor, u_in_p: torch.Tensor,
         _stream(dev))
     if rc != 0:
         raise RuntimeError(f"wilson_hop_launch failed: CUDA error {rc}")
-    LAUNCHES["hop_block_planar"] += 1
-    B1_MODE_LAUNCHES["halo" if halo else "periodic"] += 1
+    count_launch("hop_block_planar", halo)
     return out
 
 
@@ -312,6 +305,7 @@ def dhat_planar_fused(u_e_p: torch.Tensor, u_o_p: torch.Tensor,
     (:func:`geometry.tile_geometry`).  Shapes and dtypes as
     :func:`hop_block_planar`; periodic single shard.
     """
+    count_call("dhat_planar_fused")
     T, Z, Y, Xh, nrhs, gc = _check_fields((u_e_p, u_o_p), (psi_e_p,),
                                           what="dhat_planar_fused")
     if psi_e_p.device.type == "cpu":
@@ -334,7 +328,7 @@ def dhat_planar_fused(u_e_p: torch.Tensor, u_o_p: torch.Tensor,
     if rc != 0:
         raise RuntimeError(
             f"wilson_dhat_fused_launch failed: CUDA error {rc}")
-    LAUNCHES["dhat_planar_fused"] += 1
+    count_launch("dhat_planar_fused")
     return out
 
 
@@ -372,6 +366,7 @@ def dhat_planar_fused_stream(u_e_p: torch.Tensor, u_o_p: torch.Tensor,
     dtypes as :func:`hop_block_planar`; periodic single shard.
     ``window < 4`` raises ``ValueError``.
     """
+    count_call("dhat_planar_fused_stream")
     if window < STREAM_WINDOW_ROWS:
         raise ValueError(
             f"stream window needs >= {STREAM_WINDOW_ROWS} rows (3 live "
@@ -403,5 +398,5 @@ def dhat_planar_fused_stream(u_e_p: torch.Tensor, u_o_p: torch.Tensor,
     if rc != 0:
         raise RuntimeError(
             f"wilson_dhat_stream_launch failed: CUDA error {rc}")
-    LAUNCHES["dhat_planar_fused_stream"] += 1
+    count_launch("dhat_planar_fused_stream")
     return out

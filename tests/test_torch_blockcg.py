@@ -115,6 +115,39 @@ def test_blockcg_nan_column_isolated():
                                    atol=ATOL32)
 
 
+def test_blockcg_operator_fault_stops_the_block():
+    """An operator that poisons one column of ``A p`` mid-solve stops
+    the whole block at once: every active column ends diverged, none
+    converged, each at its last finite iterate (bit-equal to a clean
+    solve cut there).  A deliberate divergence from the reference, which
+    parks the direction on zeros and runs on (ROADMAP)."""
+    A, bb = _spd(seed=8), _rhs(64, 3, seed=9)
+    At = torch.from_numpy(A)
+
+    def counted(poison_at):
+        calls = []
+
+        def op(v):
+            calls.append(1)
+            out = v @ At.T
+            if poison_at and len(calls) >= poison_at:
+                out = out.clone()
+                out[1, 0] = float("nan")
+            return out
+        return op, calls
+
+    op, calls = counted(4)
+    res = solver.blockcg_batched(op, torch.from_numpy(bb), tol=1e-6,
+                                 max_iters=300)
+    assert res.diverged.tolist() == [True, True, True]
+    assert not res.converged.any()
+    assert torch.isfinite(res.x).all()
+    assert len(calls) == 5          # 4 iterations + the exit's residual
+    clean = solver.blockcg_batched(counted(0)[0], torch.from_numpy(bb),
+                                   tol=1e-6, max_iters=3)
+    assert torch.equal(res.x, clean.x)
+
+
 def test_blockcg_cholesky_failure_is_nan_not_raise():
     """A factorization PyTorch cannot do comes out NaN (JAX's value),
     and the guard freezes the solve instead of the call raising."""
