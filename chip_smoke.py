@@ -150,6 +150,15 @@ Run from a checkout: it builds the CUDA kernels from
    32 single-source requests submitted at once, submitted one at a time
    (each a served block of one), and solved one by one through a
    session;
+7h. drives the language-model stack (``lm``, plain PyTorch, no kernel):
+   all ten architectures at the CPU tests' size, f32 and bf16, a
+   prefill, two decode steps and one train step on the card against
+   the same run on the CPU; ``deepseek-7b`` at its published widths cut
+   to 4 layers: 5 train steps (remat) at batch 8 x seq 512 (step ms,
+   tokens/s, peak memory), a prefill of 8 x 1024 and 16 decode steps
+   (prefill ms, decode tokens/s; the last step against a full forward);
+   and ``python -m repro_torch.launch.train`` to 20 steps, uninterrupted
+   and resumed at 10, ending on the same loss;
 8. times the unbatched solve against the batched pipeline with a block
    of one source at wilson-16x16x16x16 (the candidate removal of the
    unbatched solvers), and steady solves under each Dhat policy (two B1
@@ -191,6 +200,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -3427,6 +3437,388 @@ def time_bf16(device):
     return out
 
 
+# --- the language-model stack (no kernel: plain PyTorch) --------------
+
+LM_F32_TOL = 1e-4      # the CPU tests' f32 tolerance (of max|CPU run|)
+LM_BF16_TOL = 3e-2     # the CPU tests' bf16 tolerance
+LM_SMALL_LR = 1e-3     # the small train step's AdamW: lr, one warmup step
+# bf16 first moments are held leaf by leaf, each against the larger of
+# its own max and this share of the model's largest: a leaf whose
+# gradient is small beside the others' is mostly the bf16 rounding of
+# larger terms (RWKV's w0, 6.9e-5 of the model's largest, is off by
+# 3.02e-2 of its own max on the H100; PERF.md lists the readings)
+LM_M_FLOOR = 1e-3
+# A first Adam step moves every entry by lr * sign(gradient) plus the
+# decay, so an entry whose gradient is rounding noise may step the other
+# way (2 lr off).  The parameter change (new - old) is held against the
+# CPU's within tol * max|CPU change| of its leaf, except at most this
+# share of the model's entries and of any one leaf's (a missing or
+# wrong-signed update moves every entry of its leaf 1 or 2 lr off).
+LM_FLIP_SHARE = {"float32": 1e-3, "bfloat16": 2e-2}
+LM_LEAF_FLIP_SHARE = 0.25
+LM_FULL = ("deepseek-7b", 4)           # arch at published widths, depth
+LM_TRAIN = (8, 512, 5)                 # batch, seq, steps (remat)
+LM_PREFILL = (8, 1024, 16)             # batch, prompt tokens, decodes
+LM_PREFILL_REPS = 3                    # timed prefills after a warm-up
+# the reference's decode-against-forward tolerance in bf16
+# (tests/test_models.py::test_decode_matches_forward)
+LM_DECODE_TOL = 5e-2
+LM_CLI = ["--ckpt-every", "5"]           # and the defaults otherwise
+LM_CLI_STEPS = (20, 10)                  # uninterrupted; first leg
+LM_CLI_TIMEOUT = 300                     # s, each CLI run
+
+
+def lm_small(name, **over):
+    """An architecture at the CPU tests' size (``build_small(name,
+    n_layers=2)``): two layers, narrow widths, its family kept."""
+    from repro_torch import configs
+    cfg = configs.get(name)
+    small = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
+                 d_ff=128, vocab_size=128, head_dim=16)
+    if cfg.n_kv_heads < cfg.n_heads:
+        small["n_kv_heads"] = 2
+    if cfg.attention == "mla":
+        small.update(q_lora_rank=32, kv_lora_rank=24, qk_nope_dim=8,
+                     qk_rope_dim=8, v_head_dim=8, head_dim=16)
+    if cfg.moe:
+        small.update(n_experts=4, moe_d_ff=64, capacity_factor=2.0)
+    if cfg.attention == "none":
+        small.update(rwkv_head_dim=16, rwkv_decay_lora=8)
+    if cfg.attention == "hybrid":
+        small.update(ssm_state=4, sliding_window=64, n_heads=5,
+                     n_kv_heads=5, d_model=80, head_dim=16)
+    if cfg.encoder_layers:
+        small.update(encoder_layers=2)
+    if cfg.num_prefix_embeds:
+        small.update(num_prefix_embeds=6)
+    small.update(over)
+    return cfg.scaled(**small)
+
+
+def _rel(got, want):
+    """max|got - want| / max|want| in f32 on the CPU."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30))
+
+
+def _lm_small_run(cfg, tree, batch, device):
+    """Prefill, two decode steps and one train step of ``cfg`` from the
+    tree (moved to ``device``): (logits of the three, loss, grad norm,
+    each parameter's change by name, first moments)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import model as TM, steps
+    from repro_torch.optim import adamw
+    model = TM.LanguageModel(cfg, TM.tree_map(lambda t: t.clone(), tree),
+                             device=device)
+    x = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+         for k, v in batch.items()}
+    toks = x.pop("tokens")
+    extra = {k: v for k, v in x.items() if k != "mask"}
+    S = toks.shape[1] - 2
+    cache_dtype = getattr(torch, cfg.compute_dtype)
+    with torch.no_grad():
+        last, cache, idx = model.prefill(toks[:, :S], S + 4 +
+                                         cfg.num_prefix_embeds,
+                                         cache_dtype=cache_dtype, **extra)
+        d1, cache = model.decode_step(cache, toks[:, S:S + 1], idx)
+        d2, cache = model.decode_step(cache, toks[:, S + 1:S + 2], idx + 1)
+    opt = adamw.AdamW(lr=LM_SMALL_LR, warmup_steps=1, total_steps=10)
+    named = TM.flatten(model.params())
+    before = {k: p.detach().clone() for k, p in named.items()}
+    state = opt.init(list(named.values()))
+    step = steps.make_train_step(cfg, opt, remat=True)
+    state, met = step(model, state, {"tokens": toks[:, :S], **x}, 0)
+    return {"logits": (last, d1[:, 0], d2[:, 0]), "loss": met["loss"],
+            "grad_norm": met["grad_norm"],
+            "step": {k: (p.detach() - before[k]).cpu()
+                     for k, p in named.items()},
+            "m": dict(zip(named, (m.cpu() for m in state.m)))}
+
+
+def _lm_small_check(name, dtype, device):
+    """One architecture in one compute dtype, on the card against the
+    CPU on the same weights and batch: (ok, the worst relative errors,
+    the leaves they came from)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import model as TM
+    cfg = dataclasses.replace(lm_small(name), compute_dtype=dtype)
+    tree = TM.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    B, S = 2, 16
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, S + 2)),
+             "mask": np.ones((B, S), np.float32)}
+    if cfg.num_prefix_embeds:
+        batch["prefix_embeds"] = (rng.standard_normal(
+            (B, cfg.num_prefix_embeds, cfg.d_model)) * 0.1).astype(
+                np.float32)
+    if cfg.is_enc_dec:
+        batch["enc_embeds"] = (rng.standard_normal(
+            (B, 8, cfg.d_model)) * 0.1).astype(np.float32)
+    cpu = _lm_small_run(cfg, tree, batch, torch.device("cpu"))
+    gpu = _lm_small_run(cfg, tree, batch, device)
+    tol = LM_F32_TOL if dtype == "float32" else LM_BF16_TOL
+    floor = 0.0 if dtype == "float32" else LM_M_FLOOR
+    m_max = max(float(c.abs().max()) for c in cpu["m"].values())
+    # first moments (0.1 x the clipped gradient), leaf by leaf: the error
+    # over the larger of the leaf's max and floor x the model's max
+    m_err = {k: float((gpu["m"][k] - c).abs().max())
+             / max(float(c.abs().max()), floor * m_max, 1e-30)
+             for k, c in cpu["m"].items()}
+    m_own = {k: _rel(gpu["m"][k], c) for k, c in cpu["m"].items()}
+    # the parameter change, leaf by leaf against the CPU's
+    flips, n, excess, leaf_share = 0, 0, 0.0, {}
+    for k, c in cpu["step"].items():
+        d = (gpu["step"][k] - c).abs()
+        bound = tol * float(c.abs().max())
+        off = int((d > bound).sum())
+        flips, n = flips + off, n + c.numel()
+        leaf_share[k] = off / c.numel()
+        excess = max(excess, float(d.max()) - bound)
+    worst_m = max(m_err, key=m_err.get)
+    worst_own = max(m_own, key=m_own.get)
+    worst_leaf = max(leaf_share, key=leaf_share.get)
+    err = {"logits": max(_rel(g, c) for g, c in zip(gpu["logits"],
+                                                      cpu["logits"])),
+           "loss": _rel(gpu["loss"], cpu["loss"]),
+           "grad_norm": _rel(gpu["grad_norm"], cpu["grad_norm"]),
+           "m": m_err[worst_m],
+           "m_own": m_own[worst_own],
+           "m_own_of_model": float(cpu["m"][worst_own].abs().max()) / m_max,
+           "step_share": flips / n,
+           "step_leaf_share": leaf_share[worst_leaf],
+           "step_excess": excess}         # beyond tol * max|change|
+    ok = (max(err[k] for k in ("logits", "loss", "grad_norm", "m")) <= tol
+          and err["step_share"] <= LM_FLIP_SHARE[dtype]
+          and err["step_leaf_share"] <= LM_LEAF_FLIP_SHARE
+          and err["step_excess"] <= 2 * LM_SMALL_LR)
+    return ok, err, {"m": worst_m, "m_own": worst_own, "step": worst_leaf}
+
+
+def _lm_cli(runs):
+    """Run ``python -m repro_torch.launch.train`` once per ``(args,
+    log)`` of ``runs``, all at once, each with its defaults but ``args``
+    and its output to ``log``: [(exit code, lines, last step's loss)].
+    A run still going after ``LM_CLI_TIMEOUT`` s is killed."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = []
+    try:
+        for args, log in runs:
+            fh = open(log, "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.train", *args],
+                stdout=fh, stderr=subprocess.STDOUT, env=env, cwd=ROOT),
+                fh, log))
+        out = []
+        for proc, _, log in procs:
+            try:
+                rc = proc.wait(timeout=LM_CLI_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                rc = None
+            lines = Path(log).read_text().splitlines()
+            steps = [ln.split() for ln in lines if ln.startswith("step ")]
+            out.append((rc, lines, float(steps[-1][3]) if steps else None))
+        return out
+    finally:
+        for proc, fh, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            fh.close()
+
+
+def phase_lm(device):
+    """The language-model stack on the card (plain PyTorch: it holds no
+    kernel, and the TPU side had no Pallas kernel there either).
+
+    1. All ten architectures at the CPU tests' size (:func:`lm_small`), in
+       f32 compute and in the config's bf16: a prefill and two decode
+       steps (their logits) and one train step (loss, grad norm, first
+       moments, updated parameters; AdamW lr 1e-3 after one warmup step)
+       on the card, held against the same run on the CPU from the same
+       weights and batch within the CPU tests' tolerances (f32 1e-4,
+       bf16 3e-2 of max|CPU|); the first moments leaf by leaf (in bf16
+       of the larger of the leaf's max and ``LM_M_FLOOR`` of the
+       model's); each parameter's change against the CPU's within that
+       tolerance of its leaf's largest change, except a share of entries
+       (``LM_FLIP_SHARE``, ``LM_LEAF_FLIP_SHARE``), each within 2 lr
+       more (an Adam step moves an entry whose gradient is rounding
+       noise by lr either way).
+    2. ``deepseek-7b`` at its published widths (d_model 4096, 32 heads of
+       128, d_ff 11008, vocab 102400) with its depth cut from 30 to 4
+       layers (``cfg.scaled(n_layers=4)``): 5 steps of
+       ``make_train_step(remat=True)`` at batch 8 x seq 512 from weights
+       drawn on the card (finite loss and grad norm; step ms, the median
+       of steps 2-5, tokens/s, peak memory), then prefills of 8 x 1024
+       tokens and 16 greedy decode steps through ``make_prefill_step``
+       and ``make_serve_step`` (prefill ms, the median of
+       ``LM_PREFILL_REPS`` after a warm-up; decode tokens/s from the
+       median of steps 2-16 after a warm-up step), the last decode
+       step's logits held against a full forward over the same 1040
+       tokens within ``LM_DECODE_TOL``.
+    3. The CLI, ``python -m repro_torch.launch.train`` with its defaults
+       and ``--steps 20 --ckpt-every 5``: once uninterrupted and, at
+       the same time in another process, to ``--steps 10``; then resumed
+       to 20, which must print ``resumed from step 10`` and end on the
+       uninterrupted run's last loss within 1e-3 relative.
+    Returns the full-width numbers."""
+    import shutil
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.models import model as TM, steps
+    from repro_torch.optim import adamw
+    t0 = time.time()
+    for name in configs.ARCH_NAMES:
+        for dtype in ("float32", lm_small(name).compute_dtype):
+            ok, err, where = _lm_small_check(name, dtype, device)
+            print(f"lm small {name} {dtype}: " + ", ".join(
+                f"{k} {v:.2e}" for k, v in err.items()) + "; worst leaves "
+                + ", ".join(f"{k} {v}" for k, v in where.items()),
+                flush=True)
+            check(ok, f"lm: {name} in {dtype} on the card differs from the "
+                      f"CPU: {err}")
+    print(f"lm small: 10 architectures x 2 dtypes in "
+          f"{time.time() - t0:.1f} s", flush=True)
+
+    arch, depth = LM_FULL
+    full = configs.get(arch)
+    cfg = full.scaled(n_layers=depth)
+    n_params = cfg.param_count()
+    print(f"lm full width: {arch} d_model {cfg.d_model}, {cfg.n_heads} "
+          f"heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}; depth cut {full.n_layers} -> {depth} layers "
+          f"(cfg.scaled(n_layers={depth})): {n_params / 1e9:.3f} B "
+          f"parameters, {cfg.compute_dtype} compute, f32 weights",
+          flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = TM.LanguageModel(cfg, generator=torch.Generator(device=device)
+                             .manual_seed(0), device=device)
+    B, S, n_steps = LM_TRAIN
+    opt = adamw.AdamW(total_steps=100, warmup_steps=10)
+    leaves = list(TM.flatten(model.params()).values())
+    state = opt.init(leaves)
+    train_step = steps.make_train_step(cfg, opt, remat=True)
+    source = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                    global_batch=B))
+    walls, losses, norms = [], [], []
+    for i in range(n_steps):
+        batch = to_device(source.batch(i), device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, met = train_step(model, state, batch, i)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    check(all(map(math.isfinite, losses + norms)),
+          f"lm: non-finite loss or grad norm at full width: {losses}, "
+          f"{norms}")
+    step_s = statistics.median(walls[1:])
+    train_tps = B * S / step_s
+    print(f"lm train {arch} x{depth} layers, batch {B} x seq {S}, remat: "
+          f"step {step_s * 1e3:.1f} ms (median of steps 2-{n_steps}, "
+          f"{min(walls[1:]) * 1e3:.1f}-{max(walls[1:]) * 1e3:.1f}; first "
+          f"{walls[0] * 1e3:.1f} ms), {train_tps:.0f} tokens/s, peak "
+          f"{peak / 1e9:.2f} GB (max_memory_allocated); losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}; grad norms "
+          f"{', '.join(f'{v:.3f}' for v in norms)}; card {card_name()}",
+          flush=True)
+    del state, met, train_step, batch
+    torch.cuda.empty_cache()
+
+    B, P, n_dec = LM_PREFILL
+    gen = torch.Generator(device=device).manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                           device=device)
+    toks = [prompt]
+    params = model.params()
+    prefill_step = steps.make_prefill_step(cfg, P + n_dec)
+    serve_step = steps.make_serve_step(cfg)
+
+    def wall(fn, *a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, out
+    with torch.no_grad():
+        pre = []                # a full-size warm-up, then the timed ones
+        for _ in range(1 + LM_PREFILL_REPS):
+            cache = None
+            dt, (last, cache, idx) = wall(prefill_step, params,
+                                          {"tokens": prompt})
+            pre.append(dt)
+        prefill_s = statistics.median(pre[1:])
+        nxt = torch.argmax(last, dim=-1)[:, None]
+        # a warm-up decode step; the first timed one rewrites its slot
+        serve_step(params, cache, nxt, idx)
+        dec = []
+        for i in range(n_dec):
+            toks.append(nxt)
+            dt, (nxt, logits, cache) = wall(serve_step, params, cache, nxt,
+                                            idx + i)
+            dec.append(dt)
+        decode_s = statistics.median(dec[1:])
+        del cache
+        full_logits, _ = model(torch.cat(toks, dim=1))
+    err = _rel(logits[:, -1], full_logits[:, -1])
+    print(f"lm serve {arch} x{depth} layers: prefill {B} x {P} tokens "
+          f"{prefill_s * 1e3:.1f} ms (median of {LM_PREFILL_REPS} after a "
+          f"warm-up, {min(pre[1:]) * 1e3:.1f}-{max(pre[1:]) * 1e3:.1f}); "
+          f"decode at batch {B}: {decode_s * 1e3:.2f} ms a step (median of "
+          f"steps 2-{n_dec} after a warm-up step, {min(dec[1:]) * 1e3:.2f}-"
+          f"{max(dec[1:]) * 1e3:.2f}), {B / decode_s:.0f} tokens/s; last "
+          f"decode vs full forward {err:.2e} (tol {LM_DECODE_TOL}); card "
+          f"{card_name()}", flush=True)
+    check(err <= LM_DECODE_TOL, f"lm: the last decode step's logits differ "
+                                f"from the full forward by {err:.3e}")
+    del model, params, full_logits, logits
+    torch.cuda.empty_cache()
+
+    out_dir = ROOT / "build" / "chip_smoke_lm"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    try:
+        t = time.time()
+        n, first = LM_CLI_STEPS
+
+        def run(steps_, d, log):
+            return (LM_CLI + ["--steps", str(steps_), "--ckpt-dir",
+                              str(out_dir / d)], out_dir / log)
+        # the uninterrupted run and the first leg at once, then the resume
+        (rc, lines, want), (rc1, lines1, _) = _lm_cli(
+            [run(n, "full", "full.log"), run(first, "legs", "first.log")])
+        check(rc == 0 and lines[-1:] == ["done"],
+              f"lm: the train CLI failed (rc {rc}): {lines[-5:]}")
+        check(rc1 == 0, f"lm: the first leg failed (rc {rc1}): "
+                        f"{lines1[-5:]}")
+        ((rc, lines, got),) = _lm_cli([run(n, "legs", "resumed.log")])
+        check(rc == 0 and f"resumed from step {first}" in lines,
+              f"lm: the resumed run failed or did not resume (rc {rc}): "
+              f"{lines[-5:]}")
+        rel = abs(got - want) / abs(want)
+        print(f"lm cli: {lines[0]}; last loss uninterrupted {want:.4f}, "
+              f"resumed at {first} {got:.4f} (rel {rel:.1e}, tol 1e-3); "
+              f"{time.time() - t:.1f} s for the three runs (the first two at "
+              f"once)", flush=True)
+        check(rel <= 1e-3, f"lm: resumed loss {got} against {want}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return {"step_ms": step_s * 1e3, "tokens_per_s": train_tps,
+            "peak_bytes": peak, "prefill_ms": prefill_s * 1e3,
+            "decode_tokens_per_s": B / decode_s}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Smoke test of the PyTorch/CUDA port on one GPU.")
@@ -3483,6 +3875,7 @@ def main(argv=None):
     distributed = timed("distributed", phase_distributed, device)
     four = timed("four_ranks", phase_four_ranks, device)
     serving = timed("serving", phase_serving, device)
+    timed("lm", phase_lm, device)
     copy_bps = copy_bandwidth(device)
     print(f"copy bandwidth: {copy_bps / 1e9:.0f} GB/s (device-to-device"
           f" copy, read + write; the bounds use the 3.35 TB/s peak)",

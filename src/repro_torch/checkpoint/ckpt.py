@@ -29,6 +29,8 @@ from __future__ import annotations
 import json
 import pathlib
 import shutil
+import threading
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -41,8 +43,10 @@ class CheckpointError(OSError):
     """A collective save or restore failed on another rank."""
 
 
-def _to_host(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
+def _to_host(t: torch.Tensor, copy: bool = False) -> np.ndarray:
+    """The leaf as a numpy array; ``copy`` makes it a copy even of a CPU
+    tensor (which ``.cpu()`` would share)."""
+    t = t.detach().to("cpu", copy=copy)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy()
     return t.numpy()
@@ -70,18 +74,29 @@ class Checkpointer:
     """
 
     def __init__(self, directory, keep: int = 3, *, shard=None,
-                 t_axes: Sequence[Optional[int]] = ()):
+                 t_axes: Sequence[Optional[int]] = (),
+                 async_save: bool = False):
+        if async_save and shard is not None:
+            raise ValueError("a save on a lattice split between ranks is "
+                             "collective and synchronous; async_save "
+                             "takes one process")
         self.dir = pathlib.Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = int(keep)
         self.shard = shard
         self.t_axes = tuple(t_axes)
+        self._pool = (ThreadPoolExecutor(max_workers=1) if async_save
+                      else None)
+        self._pending: Optional[Future] = None
+        self._lock = threading.Lock()
 
-    def save(self, step: int, tree, extras: Optional[Dict] = None) -> None:
+    def save(self, step: int, tree, extras: Optional[Dict] = None,
+             block: bool = False) -> None:
         """Write ``tree`` (a tuple of tensors) as ``step``: staged in a
         temporary directory, renamed into place, then ``LATEST``
         updated, so that a save cut short never corrupts the newest
-        complete step."""
+        complete step.  With ``async_save`` and ``block=False`` the
+        files are written in the background (see :meth:`wait`)."""
         step = int(step)
         leaves = list(tree)
         manifest = {
@@ -94,13 +109,41 @@ class Checkpointer:
         if self.shard is not None:
             self._save_sharded(step, leaves, manifest, stage)
             return
-        host = [_to_host(t) for t in leaves]
-        if stage.exists():
-            shutil.rmtree(stage)
-        stage.mkdir(parents=True)
-        for i, arr in enumerate(host):
-            np.save(stage / f"leaf_{i}.npy", arr)
-        self._publish(step, stage, manifest)
+        background = self._pool is not None and not block
+        host = [_to_host(t, copy=background) for t in leaves]
+
+        def write():
+            if stage.exists():
+                shutil.rmtree(stage)
+            stage.mkdir(parents=True)
+            for i, arr in enumerate(host):
+                np.save(stage / f"leaf_{i}.npy", arr)
+            self._publish(step, stage, manifest)
+
+        with self._lock:
+            if self._pending is not None:       # backpressure: one deep
+                pending, self._pending = self._pending, None
+                pending.result()
+            if background:
+                self._pending = self._pool.submit(write)
+            else:
+                write()
+
+    def wait(self) -> None:
+        """Block until the last background save is on disk; re-raises
+        its error."""
+        with self._lock:
+            if self._pending is not None:
+                pending, self._pending = self._pending, None
+                pending.result()
+
+    def close(self) -> None:
+        """:meth:`wait`, then stop the background writer."""
+        try:
+            self.wait()
+        finally:
+            if self._pool is not None:
+                self._pool.shutdown()
 
     def _publish(self, step: int, stage: pathlib.Path, manifest) -> None:
         (stage / "MANIFEST.json").write_text(json.dumps(manifest))

@@ -1,0 +1,9 @@
+"""DeepSeek-LLM 67B (dense GQA, llama-arch) [arXiv:2401.02954; hf]."""
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="deepseek-67b", family="dense",
+    n_layers=95, d_model=8192, n_heads=64, n_kv_heads=8,
+    d_ff=22016, vocab_size=102400, head_dim=128,
+    attention="gqa", rope_theta=10000.0,
+)
