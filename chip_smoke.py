@@ -159,6 +159,24 @@ Run from a checkout: it builds the CUDA kernels from
    (prefill ms, decode tokens/s; the last step against a full forward);
    and ``python -m repro_torch.launch.train`` to 20 steps, uninterrupted
    and resumed at 10, ending on the same loss;
+7i. checks the multi-device dry run against the card (``dryrun``): the
+   dry run of the ``lm`` phase's full-width step (``deepseek-7b``, 4
+   layers, 8 x 512, remat, AdamW) on a 1 x 1 mesh, its peak within
+   ``DRYRUN_PEAK_TOL`` of that step's ``max_memory_allocated`` and its
+   matmul flops equal to a ``FlopCounterMode`` count of the step; the
+   dry run of ``wilson-16x16x16x16`` ``opt`` on a fake 2 x 2 group, its
+   halo bytes and messages per ``Dhat`` equal to what the halo counter
+   read on each of the ``four_ranks`` job's ranks for one fused
+   ``Dhat``; the dry-run CLI (``--qcd-only --mesh both``) and
+   ``examples/torch_multipod_dryrun.py`` (``deepseek-7b decode_32k`` on
+   the 512-rank mesh, then the roofline, whose rows it prints), every
+   cell ``ok`` or skipped for the reference's reason; and the trainer
+   sharded over four gloo ranks on the one card (an ``elastic`` 1 x 4
+   mesh and a 2 x 2 one, f32), its losses within ``SHARDED_TOL`` of one
+   rank's, where gloo carries DTensor's collectives on CUDA tensors (a
+   two-rank probe first; in torch 2.11 its functional all-gather crashes
+   the rank, and the same check runs over NCCL on four cards through
+   ``tools/four_gpus_nccl.py --sharded-train``);
 8. times the unbatched solve against the batched pipeline with a block
    of one source at wilson-16x16x16x16 (the candidate removal of the
    unbatched solvers), and steady solves under each Dhat policy (two B1
@@ -2279,6 +2297,15 @@ def _dist_rank(rank, world, port, out_path, device_type="cuda",
             out["times"][nrhs] = (
                 timed(lambda: m.apply_native(v)),
                 2 * timed(lambda: halo.extend_tz(v, grid, lead, lead + 1)))
+            if nrhs == 1:
+                # what this rank hands the group in one fused Dhat
+                from repro_torch.kernels import counters
+                counters.reset_halo_counts()
+                m.apply_native(v)
+                sent = [None] * world
+                dist.all_gather_object(sent, dict(counters.HALO),
+                                       group=group)
+                out["halo_dhat"] = sent
         del m, v
         snapdir = Path(out_path).parent / "snapshots"
         out["solvers"], out["basis_snapshot"] = _dist_solver_paths(
@@ -3466,6 +3493,21 @@ LM_DECODE_TOL = 5e-2
 LM_CLI = ["--ckpt-every", "5"]           # and the defaults otherwise
 LM_CLI_STEPS = (20, 10)                  # uninterrupted; first leg
 LM_CLI_TIMEOUT = 300                     # s, each CLI run
+# The dryrun phase: the dry run's peak against the card's, relative; the
+# sharded trainer's losses against one rank's, relative (f32 compute).
+DRYRUN_PEAK_TOL = 0.15
+SHARDED_TOL = 1e-5
+SHARDED_TRAIN = ["--device", "cuda", "--scale", "0.05", "--steps", "3",
+                 "--batch", "8", "--seq", "64", "--log-every", "100"]
+SHARDED_LAYOUTS = (("elastic", []), ("2x2", ["--mesh-shape", "2x2"]))
+DRYRUN_CLI_TIMEOUT = 400                 # s, each dry-run CLI process
+# the reference's skip reasons (repro/launch/dryrun.py, configs)
+DRYRUN_SKIPS = (r"lattice T=\d+,Z=\d+ not divisible by mesh shards "
+                r"\(\d+,\d+\); paper volumes are per-node, run them on "
+                r"smaller meshes",
+                r"split overlap needs local T,Z >= 2",
+                r"encoder-only: no decode step",
+                r"full attention is quadratic at 500k; per-instruction skip")
 
 
 def lm_small(name, **over):
@@ -3670,6 +3712,7 @@ def phase_lm(device):
     import shutil
 
     import torch
+    from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch import configs
     from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
@@ -3714,7 +3757,13 @@ def phase_lm(device):
         batch = to_device(source.batch(i), device)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        state, met = train_step(model, state, batch, i)
+        # the first step (not in the median) under the flop counter,
+        # which the dryrun phase's dry run of this step must equal
+        with (FlopCounterMode(display=False) if i == 0
+              else contextlib.nullcontext()) as flops:
+            state, met = train_step(model, state, batch, i)
+        if i == 0:
+            step_flops = flops.get_total_flops()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t)
         losses.append(float(met["loss"]))
@@ -3728,7 +3777,8 @@ def phase_lm(device):
     print(f"lm train {arch} x{depth} layers, batch {B} x seq {S}, remat: "
           f"step {step_s * 1e3:.1f} ms (median of steps 2-{n_steps}, "
           f"{min(walls[1:]) * 1e3:.1f}-{max(walls[1:]) * 1e3:.1f}; first "
-          f"{walls[0] * 1e3:.1f} ms), {train_tps:.0f} tokens/s, peak "
+          f"{walls[0] * 1e3:.1f} ms under the flop counter: "
+          f"{step_flops:.4e} flops), {train_tps:.0f} tokens/s, peak "
           f"{peak / 1e9:.2f} GB (max_memory_allocated); losses "
           f"{', '.join(f'{v:.4f}' for v in losses)}; grad norms "
           f"{', '.join(f'{v:.3f}' for v in norms)}; card {card_name()}",
@@ -3815,8 +3865,261 @@ def phase_lm(device):
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     return {"step_ms": step_s * 1e3, "tokens_per_s": train_tps,
-            "peak_bytes": peak, "prefill_ms": prefill_s * 1e3,
+            "peak_bytes": peak, "step_flops": step_flops,
+            "prefill_ms": prefill_s * 1e3,
             "decode_tokens_per_s": B / decode_s}
+
+
+def _sharded_rank(rank, world, port, out_path, backend="gloo"):
+    """One rank of the sharded trainer's job (spawned): gloo with every
+    rank on card 0, or NCCL with rank r on card r; the trainer on each of
+    ``SHARDED_LAYOUTS``; rank 0 saves the losses, or the error a rank
+    met."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    out = {}
+    try:
+        from repro_torch.launch import train
+        train.scaled_config = _f32_config(train.scaled_config)
+        for label, extra in SHARDED_LAYOUTS:
+            try:
+                out[label] = train.main(SHARDED_TRAIN + extra)
+            except Exception as e:  # noqa: BLE001
+                out[label] = f"{type(e).__name__}: {e}"
+        if rank == 0:
+            torch.save(out, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def _f32_config(base):
+    """``train.scaled_config`` in f32 compute (``SHARDED_TOL`` is f32's)."""
+    def scaled(name, scale):
+        return base(name, scale).scaled(compute_dtype="float32")
+    return scaled
+
+
+def _funcol_rank(rank, world, port):
+    """One rank of the gloo probe: DTensor's all-gather (a functional
+    ``all_gather_into_tensor`` and its ``wait_tensor``) on a CUDA
+    tensor."""
+    import torch
+    import torch.distributed as dist
+    import torch.distributed._functional_collectives as funcol
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    try:
+        x = torch.ones(4, 4, device="cuda")
+        funcol.all_gather_tensor(x, 0, dist.group.WORLD).wait()
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def gloo_carries_cuda_collectives() -> "str | None":
+    """``None`` if two gloo ranks on this card complete DTensor's
+    functional all-gather of a CUDA tensor; else what happened."""
+    import torch.multiprocessing as mp
+    try:
+        mp.start_processes(_funcol_rank, args=(2, _free_port()), nprocs=2,
+                           join=True, start_method="spawn")
+    except Exception as e:  # noqa: BLE001  (a rank's signal or error)
+        return f"{type(e).__name__}: {e}"
+    return None
+
+
+def check_sharded_train(backend="gloo", world=4):
+    """The trainer sharded over ``world`` ranks on CUDA tensors (gloo on
+    this card, or NCCL on ``world`` cards) on each of
+    ``SHARDED_LAYOUTS``, its losses within ``SHARDED_TOL`` of one rank's
+    on card 0.  Returns the losses."""
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch import train
+    t0 = time.time()
+    out_dir = ROOT / "build" / "chip_smoke_sharded"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    base = train.scaled_config
+    try:
+        train.scaled_config = _f32_config(base)
+        try:
+            one_rank = train.main(SHARDED_TRAIN)
+        finally:
+            train.scaled_config = base
+        mp.start_processes(_sharded_rank,
+                           args=(world, _free_port(),
+                                 str(out_dir / "train.pt"), backend),
+                           nprocs=world, join=True, start_method="spawn")
+        got = torch.load(out_dir / "train.pt", weights_only=False)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    cards = "one card" if backend == "gloo" else f"{world} cards"
+    for label, _ in SHARDED_LAYOUTS:
+        losses = got[label]
+        check(isinstance(losses, list),
+              f"sharded train ({label}, {backend}) failed: {losses}")
+        err = max(abs(a - b) / abs(b) for a, b in zip(losses, one_rank))
+        print(f"sharded train: {label} on {world} {backend} ranks on "
+              f"{cards}, f32, losses {losses}; one rank {one_rank}; worst "
+              f"{err:.2e} relative (tol {SHARDED_TOL}); card "
+              f"{card_name()}", flush=True)
+        check(len(losses) == len(one_rank) and err <= SHARDED_TOL,
+              f"sharded losses ({label}, {backend}) {losses} against one "
+              f"rank's {one_rank}")
+    print(f"sharded train: {time.time() - t0:.1f} s", flush=True)
+    return got
+
+
+def phase_dryrun(device, lm, four):
+    """The multi-device dry run checked against the card, and the trainer
+    sharded over four ranks on it (``lm``: the ``lm`` phase's full-width
+    step, its peak bytes and flops; ``four``: the ``four_ranks`` job's
+    results, each rank's halo counts of one fused ``Dhat``).
+
+    The two dry-run CLI processes (``--qcd-only --mesh both``, and the
+    multi-pod example: ``deepseek-7b decode_32k`` on the 512-rank mesh and
+    the roofline) run in the background while the rest runs here; every
+    cell they record must be ``ok`` or skipped for one of the reference's
+    reasons (``DRYRUN_SKIPS``)."""
+    import os
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import dryrun, mesh as mesh_lib
+    t0 = time.time()
+    out_dir = ROOT / "build" / "chip_smoke_dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    clis = {"qcd": [sys.executable, "-m", "repro_torch.launch.dryrun",
+                    "--qcd-only", "--mesh", "both", "--out",
+                    str(out_dir / "qcd")],
+            "example": [sys.executable,
+                        str(ROOT / "examples" / "torch_multipod_dryrun.py"),
+                        "--out", str(out_dir / "example")]}
+    logs = {k: open(out_dir / f"{k}.log", "w") for k in clis}
+    procs = {k: (subprocess.Popen(cmd, stdout=logs[k],
+                                  stderr=subprocess.STDOUT, env=env,
+                                  cwd=ROOT), time.time())
+             for k, cmd in clis.items()}
+    try:
+        # 1. memory and flops of the lm phase's step, dry-run on 1 x 1
+        arch, depth = LM_FULL
+        B, S, _ = LM_TRAIN
+        cfg = configs.get(arch).scaled(n_layers=depth)
+        with mesh_lib.fake_world(1):
+            one = mesh_lib.grid_mesh((1, 1), ("data", "model"), "cuda")
+            rec = dryrun.run_lm_cell(f"{arch}__lm-step__1x1", cfg,
+                                     ShapeCell("lm-step", S, B, "train"),
+                                     one, accum=1)
+        peak, real = rec["peak_bytes_per_device"], lm["peak_bytes"]
+        rel = abs(peak - real) / real
+        print(f"dryrun memory: {arch} x{depth} layers, train {B} x {S}, "
+              f"remat, AdamW, 1 x 1 mesh: dry-run peak {peak / 1e9:.3f} GB "
+              f"(args {rec['arg_bytes_per_device'] / 1e9:.3f}, temp "
+              f"{rec['temp_bytes_per_device'] / 1e9:.3f}; traced in "
+              f"{rec['trace_s']:.1f} s) against the card's "
+              f"max_memory_allocated {real / 1e9:.3f} GB: {rel:.1%} (tol "
+              f"{DRYRUN_PEAK_TOL:.0%}); matmul flops dry run "
+              f"{rec['flops_per_device']:.6e}, FlopCounterMode on the card "
+              f"{lm['step_flops']:.6e}; card {card_name()}", flush=True)
+        check(rel <= DRYRUN_PEAK_TOL,
+              f"dryrun: peak {peak} B against the card's {real} B")
+        check(rec["flops_per_device"] == lm["step_flops"],
+              f"dryrun: {rec['flops_per_device']} flops against the card's "
+              f"{lm['step_flops']}")
+
+        # 2. halo bytes of one Dhat on the four_ranks job's 2 x 2 grid
+        lat = configs.get_qcd(DIST_LATTICE)
+        with mesh_lib.fake_world(DIST_GRID[0] * DIST_GRID[1]):
+            qrec = dryrun.run_qcd_cell(
+                f"{DIST_LATTICE}__dhat-opt__2x2", lat, dist.group.WORLD,
+                *DIST_GRID, **dryrun.QCD_VARIANTS["opt"])
+        coll = qrec["collectives"]
+        want = {"bytes": coll["total_bytes"], "messages": coll["n_ops"]}
+        print(f"dryrun halo: {DIST_LATTICE} opt on a fake {DIST_GRID[0]} x "
+              f"{DIST_GRID[1]} group: {want['bytes']} B in "
+              f"{want['messages']} messages per rank per Dhat; the "
+              f"four_ranks job's ranks counted {four['halo_dhat']}",
+              flush=True)
+        for r, got in enumerate(four["halo_dhat"]):
+            check(got == want, f"dryrun: rank {r} sent {got} in one Dhat, "
+                               f"the dry run {want}")
+
+        # 4. the trainer sharded over four gloo ranks on this card, if
+        # gloo carries DTensor's collectives on CUDA tensors; else over
+        # NCCL on four cards (tools/four_gpus_nccl.py)
+        missing = gloo_carries_cuda_collectives()
+        if missing is None:
+            check_sharded_train("gloo")
+        else:
+            print(f"dryrun sharded train: gloo on this card does not carry "
+                  f"DTensor's functional all_gather_into_tensor + "
+                  f"wait_tensor on CUDA tensors (torch {torch.__version__}: "
+                  f"{missing}); the four-rank check runs over NCCL on four "
+                  f"cards instead: python3 tools/four_gpus_nccl.py "
+                  f"--sharded-train", flush=True)
+
+        # 3. the CLI processes
+        for name, (proc, started) in procs.items():
+            try:
+                proc.wait(timeout=max(
+                    1.0, DRYRUN_CLI_TIMEOUT - (time.time() - started)))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            logs[name].close()
+            lines = (out_dir / f"{name}.log").read_text().splitlines()
+            check(proc.returncode == 0,
+                  f"dryrun: {' '.join(clis[name][1:])} exited "
+                  f"{proc.returncode}: {lines[-5:]}")
+            recs = [json.loads(f.read_text())
+                    for f in sorted((out_dir / name).glob("*.json"))]
+            for r in recs:
+                check(r["status"] == "ok" or (
+                    r["status"] == "skip" and any(
+                        re.fullmatch(p, r["reason"]) for p in DRYRUN_SKIPS)),
+                      f"dryrun: {r['cell']} is {r['status']}: "
+                      f"{r.get('reason') or r.get('error')}")
+            done = [ln for ln in lines if ln.startswith("dry-run:")]
+            print(f"dryrun cli {name}: {done[-1] if done else lines[-1:]} "
+                  f"({time.time() - started:.1f} s)", flush=True)
+            if name == "example":
+                for ln in lines:
+                    if ln.startswith(("|", "hardware:")):
+                        print(f"dryrun roofline {ln}", flush=True)
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for fh in logs.values():
+            fh.close()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"dryrun: {time.time() - t0:.1f} s; card {card_name()}",
+          flush=True)
+    return {"peak_bytes": peak, "halo": want}
 
 
 def main(argv=None):
@@ -3875,7 +4178,8 @@ def main(argv=None):
     distributed = timed("distributed", phase_distributed, device)
     four = timed("four_ranks", phase_four_ranks, device)
     serving = timed("serving", phase_serving, device)
-    timed("lm", phase_lm, device)
+    lm = timed("lm", phase_lm, device)
+    timed("dryrun", phase_dryrun, device, lm, four)
     copy_bps = copy_bandwidth(device)
     print(f"copy bandwidth: {copy_bps / 1e9:.0f} GB/s (device-to-device"
           f" copy, read + write; the bounds use the 3.35 TB/s peak)",

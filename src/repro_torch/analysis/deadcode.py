@@ -43,14 +43,25 @@ INTENTIONAL = {
                            "through configs.get (importlib, no static "
                            "edge)",
     "repro_torch.models": "the language-model stack: run by "
-                          "launch.train; the multi-device dry run (not "
-                          "yet ported) will lower its steps",
-    "repro_torch.optim": "AdamW of the language-model stack (launch.train)",
+                          "launch.train, traced by launch.dryrun",
+    "repro_torch.optim": "AdamW of the language-model stack (launch.train, "
+                         "launch.dryrun)",
     "repro_torch.data": "token pipelines of the language-model stack "
                         "(launch.train)",
     "repro_torch.launch.train": "harvest target, as in the reference's "
                                 "audit: the LM training loop, kept for "
                                 "multi-solve QCD campaigns",
+    "repro_torch.launch.dryrun": "entry point (python -m), as launch.train: "
+                                 "the multi-device dry run on a fake "
+                                 "process group",
+    "repro_torch.launch.roofline": "entry point (python -m), as "
+                                   "launch.train: the H100 roofline over "
+                                   "the dry run's records",
+    "repro_torch.launch.mesh": "device meshes of launch.train and "
+                               "launch.dryrun",
+    "repro_torch.launch.sharding": "the sharding policy of launch.train and "
+                                   "launch.dryrun",
+    "repro_torch.launch.specs": "the dry run's fake inputs (launch.dryrun)",
 }
 
 PACKAGE = "repro_torch"

@@ -36,6 +36,7 @@ from typing import Callable, List, NamedTuple, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from ..kernels import counters
 from ..kernels.layout import GAUGE_COMPS, SPINOR_COMPS
 
 __all__ = ["TZGrid", "axis_index", "neighbor_plane", "extend_tz",
@@ -104,9 +105,13 @@ def local_origin(grid: TZGrid, t_local: int,
 def transport(grid: TZGrid, x: torch.Tensor) -> str:
     """How faces of ``x`` travel: ``"device"`` (NCCL, CUDA buffers),
     ``"host"`` (gloo with CUDA tensors, staged through pinned host
-    buffers) or ``"direct"`` (gloo with CPU tensors); chosen from the
-    group's backend."""
+    buffers), ``"direct"`` (gloo with CPU tensors) or ``"fake"`` (a
+    group of PyTorch's ``"fake"`` backend, the dry run's: no message is
+    issued, each landing face is an uninitialised buffer of its shape);
+    chosen from the group's backend."""
     backend = dist.get_backend(grid.group)
+    if backend == "fake":
+        return "fake"
     if backend == "nccl":
         if x.device.type != "cuda":
             raise ValueError("an NCCL group exchanges CUDA tensors only; "
@@ -115,7 +120,7 @@ def transport(grid: TZGrid, x: torch.Tensor) -> str:
     if backend == "gloo":
         return "host" if x.device.type == "cuda" else "direct"
     raise ValueError(f"no halo transport for a {backend!r} group; use "
-                     "nccl or gloo")
+                     "nccl, gloo or fake")
 
 
 def _face(x: torch.Tensor, dim: int, direction: int) -> torch.Tensor:
@@ -183,6 +188,7 @@ class HaloExchange:
             for i in remote:
                 axis, direction, dim = faces[i]
                 face = _face(x, dim, direction)
+                counters.count_halo(face.numel() * face.element_size())
                 tag = _TAGS[axis, direction]
                 if self._kind == "host":
                     send = torch.empty(face.shape, dtype=x.dtype,
@@ -201,7 +207,9 @@ class HaloExchange:
                                   tag, True))
                 self._ops.append((recv, grid.neighbour(axis, -direction),
                                   tag, False))
-            if self._kind == "host":
+            if self._kind == "fake":
+                self._ops = []
+            elif self._kind == "host":
                 self._packed = torch.cuda.Event()
                 self._packed.record()
             else:

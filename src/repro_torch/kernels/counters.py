@@ -15,11 +15,18 @@ no operator.
 On the card every call launches once, so ``CALLS == LAUNCHES``; on the
 CPU ``LAUNCHES`` stays 0 and ``CALLS`` still counts what the card would
 launch.
+
+* :data:`HALO` — the bytes and messages this rank hands its process
+  group in halo faces (``distributed/halo.py``: every face of
+  ``extend_tz`` and ``start_exchange_tz`` bound for another rank; a
+  local wrap sends nothing), on any device and any backend, the fake
+  one of the dry run included.  :func:`reset_halo_counts` zeroes it.
 """
 from __future__ import annotations
 
 __all__ = ["CALLS", "LAUNCHES", "B1_MODE_CALLS", "B1_MODE_LAUNCHES",
-           "count_call", "count_launch", "reset_launch_counts"]
+           "HALO", "count_call", "count_launch", "count_halo",
+           "reset_launch_counts", "reset_halo_counts"]
 
 #: wrapper calls since the last :func:`reset_launch_counts`, any device
 CALLS = {"hop_block_planar": 0, "dhat_planar_fused": 0,
@@ -30,6 +37,8 @@ LAUNCHES = dict(CALLS)
 B1_MODE_CALLS = {"periodic": 0, "halo": 0}
 #: B1's launches (``LAUNCHES["hop_block_planar"]``) split by mode
 B1_MODE_LAUNCHES = dict(B1_MODE_CALLS)
+#: halo bytes and messages sent since the last :func:`reset_halo_counts`
+HALO = {"bytes": 0, "messages": 0}
 
 
 def _count(totals, modes, name: str, halo: bool) -> None:
@@ -53,3 +62,14 @@ def reset_launch_counts() -> None:
     for counts in (CALLS, LAUNCHES, B1_MODE_CALLS, B1_MODE_LAUNCHES):
         for k in counts:
             counts[k] = 0
+
+
+def count_halo(nbytes: int) -> None:
+    """One halo face of ``nbytes`` handed to the group."""
+    HALO["bytes"] += int(nbytes)
+    HALO["messages"] += 1
+
+
+def reset_halo_counts() -> None:
+    """Set the halo counts to 0."""
+    HALO["bytes"] = HALO["messages"] = 0

@@ -1,39 +1,60 @@
 """LM training driver with checkpoint/restart fault tolerance, on one
-device.
+device or sharded over a ``DeviceMesh`` of every rank of a group.
 
 Usage (a small member of the family on the card; ``--device cpu`` on
 the CPU):
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-7b \\
       --scale 0.05 --steps 200 --batch 8 --seq 256 --ckpt-dir /tmp/ck
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --device cpu --scale 0.05 --steps 20 --batch 8 --seq 64
+
+Under ``torchrun`` (``WORLD_SIZE`` set) every rank joins one group (gloo
+on the CPU; on CUDA NCCL when each rank has a card of its own, else
+gloo) and the model is sharded over a mesh of all of them, as the
+reference's trainer does: ``--mesh elastic`` builds
+``elastic_mesh(world)`` (``--mesh-shape DATAxMODEL`` another layout),
+``single`` and ``multi`` the production meshes, which need a world of
+256 and 512.  The parameters and both AdamW moments become DTensors
+placed by ``ShardingPolicy(mesh, seq_shard_activations=False)``, and
+each batch is sharded over the data-parallel axes.  Every rank draws the
+same full initial weights and batches from the seeds and keeps its
+shards, so a sharded run computes the one-rank run's steps.  At one rank
+with no group the trainer runs on the one device, with plain tensors.
 
 Fault tolerance:
 * saves atomic last-k checkpoints (params, both AdamW moments, the step
   count and the data cursor) every ``--ckpt-every`` steps, written in
-  the background, and once more, blocking, at the end;
+  the background, and once more, blocking, at the end; on a mesh they
+  hold full tensors (``full_tensor()``; rank 0 writes), so a run saved
+  on one layout resumes on another (the reference's "restore
+  reshards");
 * on start, resumes from the latest checkpoint if present (``--fresh``
   to ignore), replaying the deterministic data stream from the saved
   cursor, so that a resumed run repeats the uninterrupted one's steps.
 
 A checkpoint named ``N`` holds the state after ``N`` steps and resumes
-at step ``N``.  ``--mesh elastic`` (the default) is the one device; the
-reference's ``single`` and ``multi`` production meshes (256 and 512
-devices) belong to its multi-device dry run, which this package does
-not have, and are refused.
+at step ``N``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from .. import configs, resolve_device
 from ..checkpoint.ckpt import Checkpointer
 from ..data.pipeline import DataConfig, make_source, to_device
+from ..models import layers
 from ..models import model as model_lib
 from ..models import steps as steps_lib
 from ..optim import adamw
+from . import mesh as mesh_lib
+from .sharding import ShardingPolicy, place, shard_of
 
 
 def scaled_config(name: str, scale: float):
@@ -73,10 +94,46 @@ def scaled_config(name: str, scale: float):
     return cfg.scaled(**kw)
 
 
+def _join_group(device: torch.device) -> torch.device:
+    """Under ``torchrun``: join one group and return this rank's device
+    (``cuda:LOCAL_RANK`` modulo the cards)."""
+    if device.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", 0))
+        device = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+        own_card = torch.cuda.device_count() >= int(
+            os.environ.get("LOCAL_WORLD_SIZE", os.environ["WORLD_SIZE"]))
+        dist.init_process_group("nccl" if own_card else "gloo")
+    else:
+        dist.init_process_group("gloo")
+    return device
+
+
+def make_mesh(kind: str, world: int, device_type: str, shape=None):
+    """The trainer's mesh: ``elastic`` over ``world`` ranks (or the
+    ``(data, model)`` ``shape``), ``single`` / ``multi`` the production
+    meshes, which need a world of exactly 256 / 512."""
+    if kind == "elastic":
+        if shape is None:
+            return mesh_lib.elastic_mesh(world, device_type=device_type)
+        if shape[0] * shape[1] != world:
+            raise ValueError(f"--mesh-shape {shape[0]}x{shape[1]} does not "
+                             f"cover the world of {world} ranks")
+        return mesh_lib.grid_mesh(shape, ("data", "model"), device_type)
+    need = 512 if kind == "multi" else 256
+    if world != need:
+        raise ValueError(f"--mesh {kind} is the {need}-rank production "
+                         f"mesh; this world has {world} rank(s) (plan "
+                         "that mesh with the dry run, launch/dryrun.py)")
+    return mesh_lib.make_production_mesh(multi_pod=kind == "multi",
+                                         device_type=device_type)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Train a scaled member of an architecture family on "
-                    "one device, with checkpoint/restart.")
+                    "one device or sharded over a mesh of ranks, with "
+                    "checkpoint/restart.")
     ap.add_argument("--arch", default="deepseek-7b")
     ap.add_argument("--scale", type=float, default=0.05)
     ap.add_argument("--steps", type=int, default=200)
@@ -88,29 +145,74 @@ def main(argv=None):
     ap.add_argument("--fresh", action="store_true")
     ap.add_argument("--mesh", default="elastic",
                     choices=["elastic", "single", "multi"],
-                    help="elastic: the one device; single and multi (the "
-                         "256- and 512-device production meshes) are "
-                         "refused")
+                    help="elastic: every rank of the group (one device "
+                         "without torchrun); single / multi: the 256- / "
+                         "512-rank production meshes")
+    ap.add_argument("--mesh-shape", default="",
+                    help="DATAxMODEL for --mesh elastic (default: "
+                         "elastic_mesh's choice)")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--data", default="", help="binary shard path")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
-    if args.mesh != "elastic":
-        ap.error(f"--mesh {args.mesh}: the production meshes (256 and 512 "
-                 "devices) belong to the multi-device dry run "
-                 "(launch/dryrun.py), which this package does not have "
-                 "yet; this trainer runs on one device (--mesh elastic)")
+    shape = None
+    if args.mesh_shape:
+        if args.mesh != "elastic":
+            ap.error("--mesh-shape applies to --mesh elastic")
+        try:
+            shape = tuple(int(v) for v in args.mesh_shape.split("x"))
+        except ValueError:
+            shape = ()
+        if len(shape) != 2:
+            ap.error(f"--mesh-shape {args.mesh_shape!r}: expected DATAxMODEL")
     device = resolve_device(args.device)
+    own = False
+    if "WORLD_SIZE" in os.environ and not dist.is_initialized():
+        device = _join_group(device)
+        own = True
+    try:
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        mesh = None
+        if dist.is_initialized() or args.mesh != "elastic":
+            try:
+                mesh = make_mesh(args.mesh, world, device.type, shape)
+            except (ValueError, RuntimeError) as e:
+                ap.error(str(e))
+        return _train(args, device, mesh)
+    finally:
+        if own:
+            dist.destroy_process_group()
 
+
+def _train(args, device, mesh):
+    """Run the steps; returns the loss of every step run."""
+    rank = dist.get_rank() if mesh is not None else 0
+    say = print if rank == 0 else (lambda *a, **kw: None)
     cfg = scaled_config(args.arch, args.scale)
     n_params = cfg.param_count()
-    print(f"arch={cfg.name} scaled params={n_params/1e6:.1f}M "
-          f"layers={cfg.n_layers} d={cfg.d_model}")
+    say(f"arch={cfg.name} scaled params={n_params/1e6:.1f}M "
+        f"layers={cfg.n_layers} d={cfg.d_model}")
 
-    # Weights from a seeded CPU generator: the same start on every device.
-    model = model_lib.LanguageModel(cfg, generator=torch.Generator()
-                                    .manual_seed(0), device=device)
+    # Weights from a seeded CPU generator: the same start on every device
+    # and every rank, each rank keeping its shards.
+    full = model_lib.init_params(cfg, torch.Generator().manual_seed(0))
+    policy = specs = None
+    ctx = contextlib.nullcontext
+    if mesh is not None:
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        policy = ShardingPolicy(mesh, seq_shard_activations=False)
+        specs = policy.param_specs(full)
+        flat = model_lib.flatten(full)
+        placed = {k: place(t.to(device), mesh, specs[k])
+                  for k, t in flat.items()}
+        full = model_lib.unflatten(full, placed)
+        ctx = implicit_replication
+        say(f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} over "
+            f"{mesh.size()} ranks")
+    model = model_lib.LanguageModel(cfg, full, device=device)
+    names = list(model_lib.flatten(model.params()))
     params = list(model_lib.flatten(model.params()).values())
     opt = adamw.AdamW(lr=args.lr, total_steps=args.steps,
                       warmup_steps=max(10, args.steps // 20))
@@ -126,41 +228,72 @@ def main(argv=None):
     source = make_source(dcfg)
     train_step = steps_lib.make_train_step(cfg, opt, remat=True)
 
+    def batch_at(step):
+        batch = to_device(source.batch(step), device)
+        if mesh is None:
+            return batch
+        bspecs = policy.data_spec(batch)
+        return {k: place(v, mesh, bspecs[k]) for k, v in batch.items()}
+
     def state():
         return (*params, *opt_state.m, *opt_state.v, opt_state.count)
 
-    start = 0
-    ckpt = (Checkpointer(args.ckpt_dir, async_save=True) if args.ckpt_dir
-            else None)
+    def saved_state():
+        """The state as whole tensors (collective on a mesh)."""
+        return tuple(t.full_tensor() if layers.is_dtensor(t) else t
+                     for t in state())
+
+    start, losses = 0, []
+    writer = rank == 0 and bool(args.ckpt_dir)
+    ckpt = (Checkpointer(args.ckpt_dir, async_save=True) if writer
+            else Checkpointer(args.ckpt_dir) if args.ckpt_dir else None)
     try:
         if ckpt and not args.fresh and ckpt.latest_step() is not None:
-            saved, step, extras = ckpt.restore(state())
+            saved, step, extras = ckpt.restore(saved_state())
             with torch.no_grad():
-                for dst, src in zip(state(), saved):
-                    dst.copy_(src)
+                # parameters, first moments, second moments, count
+                for i, (dst, src) in enumerate(zip(state(), saved)):
+                    if layers.is_dtensor(dst):
+                        spec = specs[names[i % len(names)]]
+                        dst.to_local().copy_(shard_of(src, mesh, spec))
+                    else:
+                        dst.copy_(src)
             start = int(extras.get("data_step", step))
-            print(f"resumed from step {start}")
+            say(f"resumed from step {start}")
 
         t0 = time.time()
         for step in range(start, args.steps):
-            batch = to_device(source.batch(step), device)
-            opt_state, metrics = train_step(model, opt_state, batch, step)
+            with ctx():
+                opt_state, metrics = train_step(model, opt_state,
+                                                batch_at(step), step)
+            losses.append(_scalar(metrics["loss"]))
             if step % args.log_every == 0 or step == args.steps - 1:
-                loss = float(metrics["loss"])
-                gn = float(metrics["grad_norm"])
+                loss = losses[-1]
+                gn = _scalar(metrics["grad_norm"])
                 dt = time.time() - t0
-                print(f"step {step:5d} loss {loss:.4f} grad_norm {gn:.3f} "
-                      f"({dt:.1f}s)", flush=True)
+                say(f"step {step:5d} loss {loss:.4f} grad_norm {gn:.3f} "
+                    f"({dt:.1f}s)", flush=True)
             done = step + 1
             if ckpt and done % args.ckpt_every == 0 and done < args.steps:
-                ckpt.save(done, state(), extras={"data_step": done})
+                whole = saved_state()
+                if writer:
+                    ckpt.save(done, whole, extras={"data_step": done})
         if ckpt:
-            ckpt.save(args.steps, state(),
-                      extras={"data_step": args.steps}, block=True)
+            whole = saved_state()
+            if writer:
+                ckpt.save(args.steps, whole,
+                          extras={"data_step": args.steps}, block=True)
+            if mesh is not None:
+                dist.barrier()
     finally:
         if ckpt:
             ckpt.close()
-    print("done")
+    say("done")
+    return losses
+
+
+def _scalar(t) -> float:
+    return float(t.full_tensor() if layers.is_dtensor(t) else t)
 
 
 if __name__ == "__main__":

@@ -12,8 +12,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .layers import (apply_dense, apply_rms_norm, dense_init, normal,
-                     rms_norm_init)
+from .layers import (apply_dense, apply_rms_norm, dense_init, is_dtensor,
+                     matmul, merge_heads, normal, rms_norm_init, split_heads)
 
 Params = Dict[str, Any]
 
@@ -71,6 +71,51 @@ def _wkv_chunk(r, k, v, w_log, u, state):
     return out, new_state
 
 
+def _wkv(r, k, v, w_log, u, s0, chunk: int):
+    """The WKV6 recurrence over (B,H,S,hd) in chunks of ``chunk``;
+    ``s0`` the (B,H,hd,hd) state (``None``: zeros).  Returns (out,
+    state)."""
+    if is_dtensor(r):
+        return _wkv_local(r, k, v, w_log, u, s0, chunk)
+    B, H, S, hd = r.shape
+    if s0 is None:
+        s0 = torch.zeros((B, H, hd, hd), device=r.device)
+    if S > chunk and S % chunk == 0:
+        outs, s1 = [], s0
+        for c0 in range(0, S, chunk):
+            o, s1 = _wkv_chunk(*(a[:, :, c0:c0 + chunk]
+                                 for a in (r, k, v, w_log)), u, s1)
+            outs.append(o)
+        return torch.cat(outs, dim=2), s1
+    return _wkv_chunk(r, k, v, w_log, u, s0)
+
+
+def _wkv_local(r, k, v, w_log, u, s0, chunk: int):
+    """:func:`_wkv` of DTensors, each rank on its own rows and heads (the
+    recurrence is independent per (batch, head); DTensor's rule for its
+    batched products does not take a batch dim flattened from two
+    sharded dims)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = r.device_mesh
+    pl = [p if isinstance(p, Shard) and p.dim in (0, 1) else Replicate()
+          for p in r.placements]
+    upl = [Shard(0) if isinstance(p, Shard) and p.dim == 1 else Replicate()
+           for p in pl]
+    loc = [a.redistribute(mesh, pl).to_local() for a in (r, k, v, w_log)]
+    if not is_dtensor(u):
+        u = DTensor.from_local(u, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    # u meets every row shard: its gradient is a partial sum over them
+    ugrad = [Partial() if isinstance(p, Shard) and p.dim == 0 else q
+             for p, q in zip(pl, upl)]
+    ul = u.redistribute(mesh, upl).to_local(grad_placements=ugrad)
+    sl = None if s0 is None else s0.redistribute(mesh, pl).to_local()
+    out, s1 = _wkv(*loc, ul, sl, chunk)
+    return (DTensor.from_local(out, mesh, pl, run_check=False),
+            DTensor.from_local(s1, mesh, pl, run_check=False))
+
+
 def apply_rwkv_time(p: Params, x: torch.Tensor, cfg, *,
                     state: Optional[Params] = None,
                     chunk: int = 64) -> Tuple[torch.Tensor, Optional[Params]]:
@@ -85,30 +130,22 @@ def apply_rwkv_time(p: Params, x: torch.Tensor, cfg, *,
     xr, xk, xv, xw, xg = (x + mu[i] * (prev - x) for i in range(5))
 
     def heads(a):
-        return a.reshape(B, S, H, hd).transpose(1, 2)
+        return split_heads(a, B, S, H, hd).transpose(1, 2)
 
     r = heads(apply_dense(p["wr"], xr))
     k = heads(apply_dense(p["wk"], xk))
     v = heads(apply_dense(p["wv"], xv))
     g = F.silu(apply_dense(p["wg"], xg))
     dec = p["w0"].float() + \
-        torch.tanh(apply_dense(p["w1"], xw).float()) @ p["w2"]["w"].float()
+        matmul(torch.tanh(apply_dense(p["w1"], xw).float()),
+               p["w2"]["w"].float())
     w_log = heads(-torch.exp(dec))                       # log decay < 0
     u = p["u"].float()
 
     rf, kf, vf = (a.float() for a in (r, k, v))
-    s0 = (torch.zeros((B, H, hd, hd), device=x.device) if state is None
-          else state["s"].float())
-    if S > chunk and S % chunk == 0:
-        outs, s1 = [], s0
-        for c0 in range(0, S, chunk):
-            o, s1 = _wkv_chunk(*(a[:, :, c0:c0 + chunk]
-                                 for a in (rf, kf, vf, w_log)), u, s1)
-            outs.append(o)
-        out = torch.cat(outs, dim=2)
-    else:
-        out, s1 = _wkv_chunk(rf, kf, vf, w_log, u, s0)
-    out = out.transpose(1, 2).reshape(B, S, H * hd).to(x.dtype)
+    s0 = None if state is None else state["s"].float()
+    out, s1 = _wkv(rf, kf, vf, w_log, u, s0, chunk)
+    out = merge_heads(out.transpose(1, 2), B, S, H * hd).to(x.dtype)
     out = apply_rms_norm(p["ln"], out, cfg.rms_eps) * g
     out = apply_dense(p["wo"], out)
     new_state = None
@@ -178,6 +215,80 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
+def _ssm_scan(dt, Bm, xconv, Cm, A, h0, chunk: int):
+    """The selective scan: ``(h_last (B,di,ds), y (B,S,di))`` from the
+    discretisation inputs ``dt``, ``xconv`` (B,S,di), ``Bm``, ``Cm``
+    (B,S,ds), ``A`` (di,ds) and the state ``h0`` (``None``: zeros)."""
+    if is_dtensor(dt):
+        return _ssm_scan_local(dt, Bm, xconv, Cm, A, h0, chunk)
+    B, S, di = dt.shape
+    if h0 is None:
+        h0 = torch.zeros((B, di, A.shape[1]), device=dt.device)
+
+    def scan_block(h_in, dt_c, Bm_c, xconv_c, Cm_c):
+        """(B,C,...) slices -> (h_out, y (B,C,di))."""
+        da = torch.exp(dt_c[..., None] * A)
+        db = (dt_c[..., None] * Bm_c[:, :, None, :].float()
+              * xconv_c[..., None].float())
+        da_ = torch.cat([torch.ones_like(da[:, :1]), da], dim=1)
+        db_ = torch.cat([h_in[:, None], db], dim=1)
+        hs = linear_scan(da_, db_)[:, 1:]
+        y = torch.einsum("bsdn,bsn->bsd", hs, Cm_c.float())
+        return hs[:, -1], y
+
+    if S == 1:
+        da = torch.exp(dt[:, 0][..., None] * A)
+        db = (dt[:, 0][..., None] * Bm[:, 0][:, None, :].float()
+              * xconv[:, 0][..., None].float())
+        h_last = da * h0 + db
+        return h_last, torch.einsum("bdn,bn->bd", h_last,
+                                    Cm[:, 0].float())[:, None]
+    if S > chunk and S % chunk == 0:
+        ys, h_last = [], h0
+        for c0 in range(0, S, chunk):
+            h_last, yc = scan_block(h_last, *(a[:, c0:c0 + chunk]
+                                              for a in (dt, Bm, xconv, Cm)))
+            ys.append(yc)
+        return h_last, torch.cat(ys, dim=1)
+    return scan_block(h0, dt, Bm, xconv, Cm)
+
+
+def _ssm_scan_local(dt, Bm, xconv, Cm, A, h0, chunk: int):
+    """:func:`_ssm_scan` of DTensors, each rank on its own rows and
+    inner channels (the scan is independent per row and channel):
+    ``Bm``, ``Cm`` and ``A`` meet every channel shard or row shard, so
+    their gradients are partial sums over those."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = dt.device_mesh
+    rows = [isinstance(q, Shard) and q.dim == 0 for q in dt.placements]
+    chans = [isinstance(q, Shard) and q.dim == 2 for q in dt.placements]
+
+    def pl(row_dim, chan_dim):
+        return [Shard(row_dim) if r and row_dim is not None
+                else Shard(chan_dim) if c and chan_dim is not None
+                else Replicate() for r, c in zip(rows, chans)]
+
+    def local(t, place, partial=()):
+        if not is_dtensor(t):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        grad = [Partial() if i in partial else q
+                for i, q in enumerate(place)]
+        return t.redistribute(mesh, place).to_local(grad_placements=grad)
+
+    row_dims = [i for i, r in enumerate(rows) if r]
+    chan_dims = [i for i, c in enumerate(chans) if c]
+    seq_pl, bc_pl = pl(0, 2), pl(0, None)
+    dtl, xl = local(dt, seq_pl), local(xconv, seq_pl)
+    Bl, Cl = (local(t, bc_pl, chan_dims) for t in (Bm, Cm))
+    Al = local(A, pl(None, 0), row_dims)
+    hl = None if h0 is None else local(h0, pl(0, 1))
+    h_last, y = _ssm_scan(dtl, Bl, xl, Cl, Al, hl, chunk)
+    return (DTensor.from_local(h_last, mesh, pl(0, 1), run_check=False),
+            DTensor.from_local(y, mesh, seq_pl, run_check=False))
+
+
 def apply_ssm(p: Params, x: torch.Tensor, cfg, *,
               state: Optional[Params] = None,
               chunk: int = 256) -> Tuple[torch.Tensor, Optional[Params]]:
@@ -212,35 +323,8 @@ def apply_ssm(p: Params, x: torch.Tensor, cfg, *,
     dt_r, Bm, Cm = proj[..., :r], proj[..., r:r + ds], proj[..., r + ds:]
     dt = F.softplus(apply_dense(p["dt_proj"], dt_r)).float()
     A = -torch.exp(p["A_log"])                           # (di, ds)
-    h0 = (torch.zeros((B, di, ds), device=x.device) if state is None
-          else state["h"].float())
-
-    def scan_block(h_in, dt_c, Bm_c, xconv_c, Cm_c):
-        """(B,C,...) slices -> (h_out, y (B,C,di))."""
-        da = torch.exp(dt_c[..., None] * A)
-        db = (dt_c[..., None] * Bm_c[:, :, None, :].float()
-              * xconv_c[..., None].float())
-        da_ = torch.cat([torch.ones_like(da[:, :1]), da], dim=1)
-        db_ = torch.cat([h_in[:, None], db], dim=1)
-        hs = linear_scan(da_, db_)[:, 1:]
-        y = torch.einsum("bsdn,bsn->bsd", hs, Cm_c.float())
-        return hs[:, -1], y
-
-    if S == 1:
-        da = torch.exp(dt[:, 0][..., None] * A)
-        db = (dt[:, 0][..., None] * Bm[:, 0][:, None, :].float()
-              * xconv[:, 0][..., None].float())
-        h_last = da * h0 + db
-        y = torch.einsum("bdn,bn->bd", h_last, Cm[:, 0].float())[:, None]
-    elif S > chunk and S % chunk == 0:
-        ys, h_last = [], h0
-        for c0 in range(0, S, chunk):
-            h_last, yc = scan_block(h_last, *(a[:, c0:c0 + chunk]
-                                              for a in (dt, Bm, xconv, Cm)))
-            ys.append(yc)
-        y = torch.cat(ys, dim=1)
-    else:
-        h_last, y = scan_block(h0, dt, Bm, xconv, Cm)
+    h0 = None if state is None else state["h"].float()
+    h_last, y = _ssm_scan(dt, Bm, xconv, Cm, A, h0, chunk)
     y = y.to(x.dtype) + xconv * p["D"].to(x.dtype)
     y = y * F.silu(z)
     out = apply_dense(p["out_proj"], y)

@@ -13,6 +13,8 @@ function.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -20,6 +22,31 @@ import torch
 import torch.nn.functional as F
 
 Params = Dict[str, Any]
+
+# ---------------------------------------------------------------------------
+# Attention-tensor sharding hook (set by the dry run while it traces):
+# callable(tensor, kind) -> tensor, with kind in {"q", "kv", "out"}.
+# Pins head-parallel attention (Megatron-style) so that no replicated
+# (H, S, S) score tensor is built; unset, it is the identity.
+# ---------------------------------------------------------------------------
+
+_ATTN_CONSTRAINT = None
+
+
+@contextlib.contextmanager
+def attention_constraint(fn):
+    global _ATTN_CONSTRAINT
+    old, _ATTN_CONSTRAINT = _ATTN_CONSTRAINT, fn
+    try:
+        yield
+    finally:
+        _ATTN_CONSTRAINT = old
+
+
+def _constrain(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if _ATTN_CONSTRAINT is None:
+        return x
+    return _ATTN_CONSTRAINT(x, kind)
 
 
 def normal(gen: torch.Generator, shape, scale: float = 1.0) -> torch.Tensor:
@@ -36,7 +63,106 @@ def dense_init(gen, in_dim: int, out_dim: int,
 
 
 def apply_dense(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["w"].to(x.dtype)
+    return matmul(x, p["w"].to(x.dtype))
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a 2-D ``w``; DTensors go through
+    :func:`_sharded_matmul`."""
+    if is_dtensor(x) or is_dtensor(w):
+        return _sharded_matmul(x, w)
+    return x @ w
+
+
+def _sharded_matmul(x, w):
+    """``x @ w`` on local shards, Megatron's pattern made explicit (DTensor's
+    own rule for ``@`` flattens x's leading dims, which has no rule when
+    two of them are sharded, and picks gathers of activations over
+    gathers of weights).  Per mesh dim:
+
+    * where x's rows (dim 0) are sharded (data parallelism), ``w`` is
+      gathered there (FSDP) and the product stays row-sharded;
+    * where ``w`` shards its output dim (column), x is gathered but for
+      its rows (the sequence-parallel gather) and the product is sharded
+      on its last dim;
+    * where ``w`` shards its input dim (row), x is split on its last dim
+      to match and the product is a partial sum;
+    * elsewhere both are replicated.
+
+    Each local operand's gradient is declared as what it is: a partial
+    sum over the mesh dims where the other operand holds only part of the
+    contraction (the weight's over the row shards, x's over the column
+    shards), so that DTensor reduces it on the way back (a reduce-scatter
+    into the weight's shards: FSDP's).
+    """
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = (x if is_dtensor(x) else w).device_mesh
+    rep = [Replicate()] * mesh.ndim
+    if not is_dtensor(x):
+        x = DTensor.from_local(x, mesh, rep, run_check=False)
+    if not is_dtensor(w):
+        w = DTensor.from_local(w, mesh, rep, run_check=False)
+    last = x.ndim - 1
+    x_pl, w_pl, out_pl, x_grad, w_grad = [], [], [], [], []
+    for xp, wp in zip(x.placements, w.placements):
+        if isinstance(xp, Shard) and xp.dim == 0 and last > 0:
+            x_pl.append(xp)
+            w_pl.append(Replicate())
+            out_pl.append(xp)
+            x_grad.append(xp)
+            w_grad.append(Partial())
+        elif isinstance(wp, Shard) and wp.dim == 1:
+            x_pl.append(Replicate())
+            w_pl.append(wp)
+            out_pl.append(Shard(last))
+            x_grad.append(Partial())
+            w_grad.append(wp)
+        elif isinstance(wp, Shard) and wp.dim == 0:
+            x_pl.append(Shard(last))
+            w_pl.append(wp)
+            out_pl.append(Partial())
+            x_grad.append(Shard(last))
+            w_grad.append(wp)
+        else:
+            for lst in (x_pl, w_pl, out_pl, x_grad, w_grad):
+                lst.append(Replicate())
+    out = x.redistribute(mesh, x_pl).to_local(grad_placements=x_grad) @ \
+        w.redistribute(mesh, w_pl).to_local(grad_placements=w_grad)
+    return DTensor.from_local(out, mesh, out_pl, run_check=False)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  A DTensor table is looked up on each rank's
+    shard: its vocab dim gathered, its feature dim kept sharded, the
+    tokens' rows as they are (DTensor's own rule gathers the whole
+    table)."""
+    if not is_dtensor(table):
+        return table[tokens]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    if not is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    t_pl, t_grad, tok_pl, out_pl = [], [], [], []
+    for tp, kp in zip(table.placements, tokens.placements):
+        if isinstance(kp, Shard) and kp.dim == 0:
+            t_pl.append(Replicate())
+            t_grad.append(Partial())        # each rank's rows' part
+            tok_pl.append(kp)
+            out_pl.append(kp)
+        elif isinstance(tp, Shard) and tp.dim == 1:
+            t_pl.append(tp)
+            t_grad.append(tp)
+            tok_pl.append(Replicate())
+            out_pl.append(Shard(tokens.ndim))
+        else:
+            for lst in (t_pl, t_grad, tok_pl, out_pl):
+                lst.append(Replicate())
+    out = table.redistribute(mesh, t_pl).to_local(grad_placements=t_grad)[
+        tokens.redistribute(mesh, tok_pl).to_local()]
+    return DTensor.from_local(out, mesh, out_pl, run_check=False)
 
 
 def rms_norm_init(gen, dim: int) -> Params:
@@ -100,6 +226,10 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``kv_chunk``: if > 0, stream over kv chunks with a running softmax
     (flash-attention-style, keeps O(S * chunk) score memory).
     """
+    if is_dtensor(q):
+        return _sdpa_local(q, k, v, causal=causal, q_offset=q_offset,
+                           kv_positions=kv_positions, window=window,
+                           kv_chunk=kv_chunk)
     B, S, H, hd = q.shape
     Skv, K = k.shape[1], k.shape[2]
     G = H // K
@@ -144,6 +274,79 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, S, H, hd).to(q.dtype)
 
 
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (a sharded run; the dry run and the
+    trainer on a mesh), without importing DTensor for plain tensors."""
+    return type(x).__name__ == "DTensor"
+
+
+def _replicate_dims(t, keep) -> torch.Tensor:
+    """``t`` with every ``Shard(d)`` placement for which ``keep(d,
+    n_shards)`` is false turned into ``Replicate()`` (one all-gather)."""
+    from torch.distributed.tensor import Replicate
+
+    mesh = t.device_mesh
+    shards = {}
+    for i, p in enumerate(t.placements):
+        if p.is_shard():
+            shards[p.dim] = shards.get(p.dim, 1) * mesh.size(i)
+    pl = [Replicate() if p.is_shard() and not keep(p.dim, shards[p.dim])
+          else p for p in t.placements]
+    return t if pl == list(t.placements) else t.redistribute(mesh, pl)
+
+
+def split_heads(t: torch.Tensor, *shape) -> torch.Tensor:
+    """``t.reshape(*shape)``, its last dim split into ``(heads, hd)``.  A
+    DTensor whose last dim is sharded over more ranks than divide the
+    heads (40 heads over 16) has it gathered first: DTensor cannot split
+    a dim into uneven shards."""
+    if is_dtensor(t):
+        last = t.ndim - 1
+        t = _replicate_dims(t, lambda d, n: d != last or shape[-2] % n == 0)
+    return t.reshape(*shape)
+
+
+def merge_heads(t: torch.Tensor, *shape) -> torch.Tensor:
+    """``t.reshape(*shape)``, its last two dims ``(heads, hd)`` merged.  A
+    DTensor sharded on ``hd`` has it gathered first (a merged dim sharded
+    on its minor part has no rule in the products that follow)."""
+    if is_dtensor(t):
+        last = t.ndim - 1
+        t = _replicate_dims(t, lambda d, n: d != last)
+    return t.reshape(*shape)
+
+
+def _sdpa_local(q, k, v, **kw) -> torch.Tensor:
+    """:func:`sdpa` of DTensors, each rank on its own rows and heads.
+
+    DTensor's rule for the scores' batched product does not take a
+    batch dim flattened from two sharded dims (batch and heads), so the
+    core runs on local shards: q, k and v are redistributed to one
+    placement, the batch sharded as q's, the heads sharded where q's are
+    and the model axis divides the kv heads (then every local q head
+    finds its kv head locally), every other dim replicated; the result
+    comes back with that placement.  The redistributions are the
+    collectives this costs."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = q.device_mesh
+    K = k.shape[2]
+    pl = []
+    for i, p in enumerate(q.placements):
+        if isinstance(p, Shard) and p.dim == 0:
+            pl.append(p)
+        elif isinstance(p, Shard) and p.dim == 2 and K % mesh.size(i) == 0:
+            pl.append(p)
+        else:
+            pl.append(Replicate())
+    if not isinstance(k, DTensor):
+        k, v = (DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False) for t in (k, v))
+    ql, kl, vl = (t.redistribute(mesh, pl).to_local() for t in (q, k, v))
+    out = sdpa(ql, kl, vl, **kw)
+    return DTensor.from_local(out, mesh, pl, run_check=False)
+
+
 def _write(buf: torch.Tensor, axis: int, start: int,
            val: torch.Tensor) -> None:
     """``buf[..., start:start+n, ...] = val`` along ``axis``, in place,
@@ -151,7 +354,26 @@ def _write(buf: torch.Tensor, axis: int, start: int,
     ``dynamic_update_slice``)."""
     n = val.shape[axis]
     start = max(0, min(int(start), buf.shape[axis] - n))
-    buf.narrow(axis, start, n).copy_(val.to(buf.dtype))
+    write_at(buf, axis, slice(start, start + n), val)
+
+
+def write_at(buf: torch.Tensor, axis: int, index,
+             val: torch.Tensor) -> None:
+    """``buf`` along ``axis`` at ``index`` (a slice or index tensor) set
+    to ``val``, in place.  A DTensor ``buf`` (a cache on a mesh, never
+    sharded along ``axis``) is written on each rank's shard, ``val``
+    first placed as ``buf``."""
+    if is_dtensor(buf):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        if not is_dtensor(val):
+            val = DTensor.from_local(val, buf.device_mesh,
+                                     [Replicate()] * buf.device_mesh.ndim,
+                                     run_check=False)
+        val = val.redistribute(buf.device_mesh, buf.placements).to_local()
+        buf = buf.to_local()
+    idx = (slice(None),) * axis + (index,)
+    buf[idx] = val.to(buf.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -186,10 +408,11 @@ def apply_gqa(p: Params, x: torch.Tensor, cfg, *,
     """
     B, S, D = x.shape
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = apply_dense(p["wq"], x).reshape(B, S, H, hd)
+    q = split_heads(apply_dense(p["wq"], x), B, S, H, hd)
     use_rope = not cross
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
+    q = _constrain(q, "q")
 
     kv_pos = None
     if cross and cache is not None:
@@ -198,8 +421,8 @@ def apply_gqa(p: Params, x: torch.Tensor, cfg, *,
         new_cache = cache
     else:
         src = x if not cross else kv_source
-        k = apply_dense(p["wk"], src).reshape(B, -1, K, hd)
-        v = apply_dense(p["wv"], src).reshape(B, -1, K, hd)
+        k = split_heads(apply_dense(p["wk"], src), B, -1, K, hd)
+        v = split_heads(apply_dense(p["wv"], src), B, -1, K, hd)
         if use_rope:
             k = apply_rope(k, positions, cfg.rope_theta)
         new_cache = None
@@ -220,10 +443,13 @@ def apply_gqa(p: Params, x: torch.Tensor, cfg, *,
                 kv_pos = slots
 
     q_offset = cache_index if cache_index is not None else positions[0, 0]
+    k = _constrain(k, "kv")
+    v = _constrain(v, "kv")
     out = sdpa(q, k, v, causal=causal and not cross,
                q_offset=q_offset, kv_positions=kv_pos,
                window=window, kv_chunk=kv_chunk)
-    out = apply_dense(p["wo"], out.reshape(B, S, H * hd))
+    out = _constrain(out, "out")
+    out = apply_dense(p["wo"], merge_heads(out, B, S, H * hd))
     return out, new_cache
 
 
@@ -267,7 +493,7 @@ def apply_mla(p: Params, x: torch.Tensor, cfg, *,
         q = apply_dense(p["wq_b"], cq)
     else:
         q = apply_dense(p["wq"], x)
-    q = q.reshape(B, S, H, dn + dr)
+    q = split_heads(q, B, S, H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -284,7 +510,7 @@ def apply_mla(p: Params, x: torch.Tensor, cfg, *,
         c_kv, k_rope = cache["ckv"], cache["krope"]
 
     Skv = c_kv.shape[1]
-    kvb = apply_dense(p["wkv_b"], c_kv).reshape(B, Skv, H, dn + dv)
+    kvb = split_heads(apply_dense(p["wkv_b"], c_kv), B, Skv, H, dn + dv)
     k_nope, v = kvb[..., :dn], kvb[..., dn:]
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, Skv, H, dr)],
                   dim=-1)
@@ -294,7 +520,7 @@ def apply_mla(p: Params, x: torch.Tensor, cfg, *,
     out = sdpa(qf, k, F.pad(v, (0, dn + dr - dv)),
                causal=True, q_offset=q_offset, kv_chunk=kv_chunk)
     out = out[..., :dv]
-    out = apply_dense(p["wo"], out.reshape(B, S, H * dv))
+    out = apply_dense(p["wo"], merge_heads(out, B, S, H * dv))
     return out, new_cache
 
 
@@ -399,6 +625,8 @@ def apply_moe(p: Params, x: torch.Tensor, cfg
     independent groups of N / G tokens (the reference's per-shard
     routing), and the aux term is their mean.
     """
+    if is_dtensor(x):
+        return _moe_local(p, x, cfg)
     B, S, D = x.shape
     N = B * S
     G = max(1, cfg.route_groups)
@@ -408,6 +636,80 @@ def apply_moe(p: Params, x: torch.Tensor, cfg
                         for xt in x.reshape(G, N // G, D)))
     out = torch.cat(outs).reshape(B, S, D)
     aux = auxes[0] if G == 1 else torch.stack(auxes).mean()
+    if "shared" in p:
+        out = out + apply_mlp(p["shared"], x)
+    return out, aux
+
+
+def _moe_local(p: Params, x, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`apply_moe` of DTensors: each rank routes the tokens of its
+    own batch rows (DTensor has no rule for the routing's sort and slot
+    scatter over a token dim flattened from two sharded dims).
+
+    The rows stay sharded over the mesh dims that shard ``x``'s batch,
+    everything else of ``x`` is gathered; the router is gathered whole;
+    the expert weights keep their shards of the expert hidden dim and
+    gather the rest (FSDP), so that each rank computes a partial sum of
+    its tokens' outputs over that dim.  With ``route_groups`` a multiple
+    of the row shards (one or more groups per rank) this is the plain
+    routing group by group; otherwise every token is gathered and
+    routed as one group on every rank.  The shared experts run on the
+    DTensor ``x``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = x.device_mesh
+    rows = [isinstance(q, Shard) and q.dim == 0 for q in x.placements]
+    n_rows = 1
+    for i, r in enumerate(rows):
+        n_rows *= mesh.size(i) if r else 1
+    G = max(1, cfg.route_groups)
+    if G % n_rows:
+        rows, n_rows = [False] * mesh.ndim, 1
+    x_pl = [Shard(0) if r else Replicate() for r in rows]
+
+    def hidden_pl(w, dim):
+        """``w``'s placements with only its shards of the hidden ``dim``
+        kept, over mesh dims that do not shard the rows."""
+        return [q if isinstance(q, Shard) and q.dim == dim and not rows[i]
+                else Replicate() for i, q in enumerate(w.placements)]
+
+    pls = {"w1": hidden_pl(p["w1"], 2), "w3": hidden_pl(p["w3"], 2),
+           "w2": hidden_pl(p["w2"], 1)}
+    parts = [i for i, q in enumerate(pls["w1"]) if isinstance(q, Shard)]
+    if pls["w3"] != pls["w1"] or [i for i, q in enumerate(pls["w2"])
+                                  if isinstance(q, Shard)] != parts:
+        pls = {k: [Replicate()] * mesh.ndim for k in pls}
+        parts = []
+
+    def local(w, pl, partial_dims):
+        """The local operand; its gradient a partial sum over
+        ``partial_dims`` (the rows' shards for the experts, and the
+        hidden dim's for what meets every hidden shard)."""
+        grad = [Partial() if i in partial_dims else q
+                for i, q in enumerate(pl)]
+        return w.redistribute(mesh, pl).to_local(grad_placements=grad)
+
+    row_dims = [i for i, r in enumerate(rows) if r]
+    w1, w3, w2 = (local(p[k], pls[k], row_dims) for k in ("w1", "w3", "w2"))
+    rep = [Replicate()] * mesh.ndim
+    router = local(p["router"]["w"], rep, row_dims + parts)
+    xl = local(x, x_pl, parts)
+    experts = dict(p, router={"w": router}, w1=w1, w2=w2, w3=w3)
+    experts.pop("shared", None)
+    out, aux = apply_moe(experts, xl, dataclasses.replace(
+        cfg, route_groups=G // n_rows))
+    out_pl = [Shard(0) if rows[i] else Partial() if i in parts
+              else Replicate() for i in range(mesh.ndim)]
+    out = DTensor.from_local(out, mesh, out_pl, run_check=False)
+    # every rank of a row shard holds that shard's aux: a partial sum of
+    # the mean over all of them
+    n_parts = 1
+    for i in parts:
+        n_parts *= mesh.size(i)
+    aux_pl = [Partial() if rows[i] or i in parts else Replicate()
+              for i in range(mesh.ndim)]
+    aux = DTensor.from_local(aux / (n_rows * n_parts), mesh, aux_pl,
+                             run_check=False)
     if "shared" in p:
         out = out + apply_mlp(p["shared"], x)
     return out, aux

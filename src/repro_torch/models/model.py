@@ -247,7 +247,7 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 
 
 def _embed(cfg: ModelConfig, params, tokens, prefix_embeds):
-    x = params["embed"][tokens].to(_cdtype(cfg))
+    x = layers.embed_lookup(params["embed"], tokens).to(_cdtype(cfg))
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     return x
@@ -256,7 +256,7 @@ def _embed(cfg: ModelConfig, params, tokens, prefix_embeds):
 def _logits(cfg: ModelConfig, params, x):
     xn = layers.apply_rms_norm(params["final_norm"], x, cfg.rms_eps)
     if cfg.tie_embeddings:
-        return xn @ params["embed"].T.to(xn.dtype)
+        return layers.matmul(xn, params["embed"].T.to(xn.dtype))
     return layers.apply_dense(params["lm_head"], xn)
 
 
@@ -278,17 +278,22 @@ def encode(cfg: ModelConfig, params, enc_embeds) -> torch.Tensor:
 
 def forward(cfg: ModelConfig, params, tokens, *,
             prefix_embeds=None, enc_embeds=None, remat: bool = False,
-            kv_chunk: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+            kv_chunk: int = 0, constraint_fn=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward (training / scoring). Returns (logits, aux).
 
     ``remat``: each layer group runs under ``torch.utils.checkpoint``
     (non-reentrant), which keeps only the group's input and recomputes
     its activations in the backward pass (the reference's
-    ``jax.checkpoint`` of its scan step)."""
+    ``jax.checkpoint`` of its scan step).  ``constraint_fn(x)``: an
+    optional placement applied to the residual stream after the
+    embedding and after every layer group (sequence parallelism)."""
     enc_out = encode(cfg, params, enc_embeds) if cfg.is_enc_dec else None
     x = _embed(cfg, params, tokens, prefix_embeds)
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
+    if constraint_fn is not None:
+        x = constraint_fn(x)
 
     def step(xc, gparams):
         aux = _zero(xc)
@@ -297,6 +302,8 @@ def forward(cfg: ModelConfig, params, tokens, *,
                                           cache=None, index=None,
                                           enc_out=enc_out, kv_chunk=kv_chunk)
             aux = aux + aux_i
+        if constraint_fn is not None:
+            xc = constraint_fn(xc)
         return xc, aux
 
     aux = _zero(x)
@@ -336,23 +343,21 @@ def _fill_layer(cfg, p, x_in, ci, *, positions, enc_out, kv_chunk):
         # full-sequence attention (banded if windowed), then cache tail
         mix_out, _ = layers.apply_gqa(ap, h, cfg, positions=positions,
                                       window=window, kv_chunk=kv_chunk)
-        k = layers.apply_dense(ap["wk"], h).reshape(
-            B, S, cfg.n_kv_heads, cfg.head_dim)
+        k = layers.split_heads(layers.apply_dense(ap["wk"], h), B, S,
+                               cfg.n_kv_heads, cfg.head_dim)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
-        v = layers.apply_dense(ap["wv"], h).reshape(
-            B, S, cfg.n_kv_heads, cfg.head_dim)
+        v = layers.split_heads(layers.apply_dense(ap["wv"], h), B, S,
+                               cfg.n_kv_heads, cfg.head_dim)
         W = ci["k"].shape[2]
         if window:
             # ring buffer: position p -> slot p % W, for the last W
             tail = torch.arange(max(S - W, 0), S, device=x_in.device)
             slots = tail % W
-            ci["k"][:, :, slots] = k[:, tail].transpose(1, 2).to(
-                ci["k"].dtype)
-            ci["v"][:, :, slots] = v[:, tail].transpose(1, 2).to(
-                ci["v"].dtype)
+            layers.write_at(ci["k"], 2, slots, k[:, tail].transpose(1, 2))
+            layers.write_at(ci["v"], 2, slots, v[:, tail].transpose(1, 2))
         else:
-            ci["k"][:, :, :S] = k.transpose(1, 2).to(ci["k"].dtype)
-            ci["v"][:, :, :S] = v.transpose(1, 2).to(ci["v"].dtype)
+            layers.write_at(ci["k"], 2, slice(0, S), k.transpose(1, 2))
+            layers.write_at(ci["v"], 2, slice(0, S), v.transpose(1, 2))
         if cfg.attention == "hybrid":
             st = {"h": ci["h"], "conv": ci["conv"]}
             s_out, s_new = blocks.apply_ssm(p["mix"]["ssm"], h, cfg,
@@ -376,10 +381,12 @@ def _fill_layer(cfg, p, x_in, ci, *, positions, enc_out, kv_chunk):
     if "cross" in p:
         enc_len = enc_out.shape[1]
         hc = layers.apply_rms_norm(p["ln_c"], x_out, cfg.rms_eps)
-        ck = layers.apply_dense(p["cross"]["wk"], enc_out).reshape(
-            B, enc_len, cfg.n_kv_heads, cfg.head_dim)
-        cv = layers.apply_dense(p["cross"]["wv"], enc_out).reshape(
-            B, enc_len, cfg.n_kv_heads, cfg.head_dim)
+        ck = layers.split_heads(
+            layers.apply_dense(p["cross"]["wk"], enc_out), B, enc_len,
+            cfg.n_kv_heads, cfg.head_dim)
+        cv = layers.split_heads(
+            layers.apply_dense(p["cross"]["wv"], enc_out), B, enc_len,
+            cfg.n_kv_heads, cfg.head_dim)
         ci["xk"] = ck.transpose(1, 2).to(ci["xk"].dtype)
         ci["xv"] = cv.transpose(1, 2).to(ci["xv"].dtype)
         c_out, _ = layers.apply_gqa(p["cross"], hc, cfg, positions=positions,
@@ -396,19 +403,22 @@ def _fill_layer(cfg, p, x_in, ci, *, positions, enc_out, kv_chunk):
 
 def prefill(cfg: ModelConfig, params, tokens, max_len: int, *,
             prefix_embeds=None, enc_embeds=None, kv_chunk: int = 0,
-            cache_dtype=torch.bfloat16):
+            cache_dtype=torch.bfloat16, cache: Optional[Cache] = None):
     """Process a prompt and build the decode cache.
 
     Returns (last-position logits (B, V), cache, next_index).
     For ring-buffer (sliding-window) attention the cache holds the last W
     positions; for state models (rwkv/ssm) it holds the final state.
+    ``cache``: an ``init_cache`` layout to fill (placed on a mesh, for
+    one), instead of a new one.
     """
     enc_out = encode(cfg, params, enc_embeds) if cfg.is_enc_dec else None
     x = _embed(cfg, params, tokens, prefix_embeds)
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
     enc_len = enc_out.shape[1] if enc_out is not None else 0
-    cache = init_cache(cfg, B, max_len, enc_len, cache_dtype, x.device)
+    if cache is None:
+        cache = init_cache(cfg, B, max_len, enc_len, cache_dtype, x.device)
     for li, p in enumerate(_layer_params(params)):
         x = _fill_layer(cfg, p, x, cache[li], positions=positions,
                         enc_out=enc_out, kv_chunk=kv_chunk)
@@ -464,6 +474,18 @@ def flatten(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
     for k, v in items:
         out.update(flatten(v, f"{prefix}.{k}" if prefix else str(k)))
     return out
+
+
+def unflatten(tree, flat: Dict[str, Any], prefix: str = ""):
+    """A tree shaped as ``tree`` whose leaves are ``flat``'s, by the
+    dotted names :func:`flatten` gives them."""
+    if isinstance(tree, torch.Tensor):
+        return flat[prefix]
+    if isinstance(tree, dict):
+        return {k: unflatten(v, flat, f"{prefix}.{k}" if prefix else k)
+                for k, v in tree.items()}
+    return [unflatten(v, flat, f"{prefix}.{i}" if prefix else str(i))
+            for i, v in enumerate(tree)]
 
 
 class LanguageModel(nn.Module):
