@@ -18,7 +18,9 @@ there is no trace to cache; the ``traces`` counter counts pipeline
 builds under the reference's name.  A matrix bound with
 ``fallback=True`` makes a failed solve walk its backend's fallback
 chain (:meth:`SolveSession.solve`), counted in ``stats()["fallbacks"]``
-beside the matrix's ``degraded`` flag and ``fallback_events``.
+beside the matrix's ``degraded`` flag and ``fallback_events``.  Each
+solve is a ``solve`` span (:mod:`repro_torch.spans`), the root of the
+spans of its steps while a profiler records.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from .. import backends
+from .. import backends, spans
 from ..core import solver as _solver
 from .matrix import WilsonMatrix
 from .specs import SolveSpec
@@ -93,18 +95,19 @@ class SolveSession:
         error is raised.
         """
         spec = self.default_spec if spec is None else spec
-        while True:
-            try:
-                return self._solve_once(eta_e, eta_o, spec)
-            except RuntimeError as exc:
-                if not self.matrix.fallback_enabled:
-                    raise
-                nxt = self.matrix.fallback_next(repr(exc))
-                if nxt is None:
-                    raise
-                self.matrix = nxt
-                self._cache.clear()
-                self._counters["fallbacks"] += 1
+        with spans.span("solve"):
+            while True:
+                try:
+                    return self._solve_once(eta_e, eta_o, spec)
+                except RuntimeError as exc:
+                    if not self.matrix.fallback_enabled:
+                        raise
+                    nxt = self.matrix.fallback_next(repr(exc))
+                    if nxt is None:
+                        raise
+                    self.matrix = nxt
+                    self._cache.clear()
+                    self._counters["fallbacks"] += 1
 
     def _solve_once(self, eta_e, eta_o, spec: SolveSpec):
         batched = spec.validate_rhs(eta_e, eta_o, self.matrix.lattice)

@@ -32,6 +32,7 @@ import functools
 
 import torch
 
+from .. import spans
 from ..core import evenodd
 from ..distributed import halo, qcd
 from ..kernels import layout, ops
@@ -64,10 +65,14 @@ def make_torch_ref_backend(U_e, U_o, **_unused) -> WilsonOps:
 
 
 def _dagger_via_gamma5_planar(apply_dhat_native):
-    """``Dhat^dag = g5 Dhat g5`` natively on planar component planes."""
+    """``Dhat^dag = g5 Dhat g5`` natively on planar component planes;
+    each gamma5 copy is a ``gamma5`` span."""
     def fn(v, kappa):
-        return layout.gamma5_planar(
-            apply_dhat_native(layout.gamma5_planar(v), kappa))
+        with spans.span("gamma5", device=v):
+            g5v = layout.gamma5_planar(v)
+        out = apply_dhat_native(g5v, kappa)
+        with spans.span("gamma5", device=out):
+            return layout.gamma5_planar(out)
     return fn
 
 

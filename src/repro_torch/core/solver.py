@@ -13,9 +13,13 @@ scalars back to the host as Python numbers.  The batched solvers keep
 the per-column scalars ``(nrhs,)`` on the device, run one operator
 application per step for the whole block, and read one small vector of
 flags back per iteration for the loop test (a second read only in an
-iteration where some column restarts).  A column that converges, breaks
-down or goes non-finite freezes bit-exactly (a ``where``-select keeps its
-old state) while the others iterate on.
+iteration where some column restarts).  Each pass of a Krylov loop and
+each host read is counted (:data:`repro_torch.kernels.counters.SOLVER`),
+and while a profiler records each host read is a ``host_read`` span and
+each ``Dhat`` of a native solve a ``dhat`` span (:mod:`repro_torch.
+spans`).  A column that converges, breaks down or goes non-finite
+freezes bit-exactly (a ``where``-select keeps its old state) while the
+others iterate on.
 
 The reference's divergence guards (``guard=True``, the default) are
 kept: a non-finite residual stops the loop and freezes the iterate at
@@ -54,6 +58,9 @@ import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
+
+from .. import spans
+from ..kernels import counters
 
 __all__ = ["SolveResult", "RefinedResult", "cg", "cgnr", "bicgstab",
            "cg_batched", "cgnr_batched", "bicgstab_batched",
@@ -178,14 +185,27 @@ def _global(x: torch.Tensor) -> torch.Tensor:
     return x if fn is None else fn(x)
 
 
+def _read(read: Callable):
+    """``read()`` (a tensor's ``item``, ``tolist`` or ``cpu``): one host
+    read of the solvers, counted (``counters.SOLVER``) and spanned
+    (``host_read``)."""
+    counters.count_host_read()
+    return spans.call("host_read", read)
+
+
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """``t.cpu()``, a host read where ``t`` lies on a device."""
+    return t.cpu() if t.device.type == "cpu" else _read(t.cpu)
+
+
 def _vdot(a: torch.Tensor, b: torch.Tensor):
     """``<a, b>`` as a Python number (complex for complex vectors);
     f32-accumulated for vectors below f32 (naive without compensation:
     bf16 products, rounded before the sum)."""
     a, b = _acc(a), _acc(b)
     if a.dtype in _LOW_PRECISION:
-        return _global((a.conj() * b).sum()).item()
-    return _global(torch.vdot(a.reshape(-1), b.reshape(-1))).item()
+        return _read(_global((a.conj() * b).sum()).item)
+    return _read(_global(torch.vdot(a.reshape(-1), b.reshape(-1))).item)
 
 
 def _norm2(x: torch.Tensor) -> float:
@@ -246,8 +266,8 @@ def _nz(d: torch.Tensor, tiny: float) -> torch.Tensor:
 
 def _bresult(x, iters, rel, conv, div) -> SolveResult:
     """Per-column :func:`_result`: CPU tensors ``(nrhs,)``."""
-    div = div.cpu() | ~torch.isfinite(rel)
-    return SolveResult(x, iters.cpu(), rel, conv.cpu() & ~div, div)
+    div = _host(div) | ~torch.isfinite(rel)
+    return SolveResult(x, _host(iters), rel, _host(conv) & ~div, div)
 
 
 def _swhere(flag: torch.Tensor, new, old):
@@ -285,7 +305,7 @@ def _nan_unless(ok: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
 
 def _any(*masks: torch.Tensor):
     """``any`` of each mask, read back to the host in one transfer."""
-    return torch.stack([m.any() for m in masks]).tolist()
+    return _read(torch.stack([m.any() for m in masks]).tolist)
 
 
 def split_columns(res: SolveResult, bounds):
@@ -336,6 +356,7 @@ def cg(op: Callable, b: torch.Tensor, x0: Optional[torch.Tensor] = None, *,
     while rr > tol2 and k < max_iters and good:
         if guard and (not math.isfinite(rr) or div):
             break
+        counters.count_iteration()
         ap = op(p)
         pap = float(_vdot(p, ap).real)
         # Breakdown guard: a (numerically) nullspace direction would
@@ -384,7 +405,7 @@ def _true_system_result(res: SolveResult, op: Callable, b: torch.Tensor,
     ``batched``."""
     r = b - op(res.x)
     if batched:
-        rel = torch.sqrt(_bnorm2(r) / _bnorm2(b).clamp_min(1e-30)).cpu()
+        rel = _host(torch.sqrt(_bnorm2(r) / _bnorm2(b).clamp_min(1e-30)))
         return _bresult(res.x, res.iterations, rel, rel <= tol * 10,
                         res.diverged)
     rel = math.sqrt(_norm2(r) / max(_norm2(b), 1e-30))
@@ -428,6 +449,7 @@ def bicgstab(op: Callable, b: torch.Tensor, x0=None, *, tol: float = 1e-6,
     while rr > tol2 and k < max_iters and good:
         if guard and (not math.isfinite(rr) or div):
             break
+        counters.count_iteration()
         rho_new = _vdot(r0, r)
         ok = abs(rho_new) > tiny and abs(rho) > tiny and abs(omega) > tiny
         beta = (rho_new / rho) * (alpha / omega) if ok else 0.0
@@ -514,6 +536,7 @@ def cg_batched(op: Callable, b: torch.Tensor, x0=None, *,
     k = 0
     (go,) = _any(live)
     while go and k < max_iters:
+        counters.count_iteration()
         ap = op(p)
         pap = _bvdot(p, ap).real
         # Breakdown guard: a (numerically) nullspace direction freezes
@@ -578,7 +601,7 @@ def cg_batched(op: Callable, b: torch.Tensor, x0=None, *,
         x, r, p, rr, active = x1, r1, p1, rr1, active_new
         k += 1
     iters = torch.where(active, k, iters)   # unconverged: ran to the end
-    rel = torch.sqrt(rr / b2.clamp_min(1e-30)).cpu()
+    rel = _host(torch.sqrt(rr / b2.clamp_min(1e-30)))
     return _bresult(x, iters, rel, rel <= tol, div)
 
 
@@ -629,6 +652,7 @@ def bicgstab_batched(op: Callable, b: torch.Tensor, x0=None, *,
     k = 0
     (go,) = _any(live)
     while go and k < max_iters:
+        counters.count_iteration()
         rho_new = _bvdot(r0, r)
         ok = (active & (rho_new.abs() > tiny) & (rho.abs() > tiny)
               & (omega.abs() > tiny))
@@ -711,7 +735,7 @@ def bicgstab_batched(op: Callable, b: torch.Tensor, x0=None, *,
         rho, alpha, omega = rho1, alpha_o, omega_o
         k += 1
     iters = torch.where(active, k, iters)
-    rel = torch.sqrt(rr / b2.clamp_min(1e-30)).cpu()
+    rel = _host(torch.sqrt(rr / b2.clamp_min(1e-30)))
     return _bresult(x, iters, rel, rel <= tol, div)
 
 
@@ -802,6 +826,7 @@ def blockcg_batched(op: Callable, b: torch.Tensor, x0=None, *,
     k = 0
     (go,) = _any(live)
     while go and k < max_iters:
+        counters.count_iteration()
         ap = op(p)
         poisoned = None
         if guard:
@@ -882,7 +907,7 @@ def blockcg_batched(op: Callable, b: torch.Tensor, x0=None, *,
     # The recursive S product drifts below the true residual: report the
     # true one (one more apply), with the 10x slack on converged.
     rt = b - op(x)
-    rel = torch.sqrt(_bnorm2(rt) / b2.clamp_min(1e-30)).cpu()
+    rel = _host(torch.sqrt(_bnorm2(rt) / b2.clamp_min(1e-30)))
     return _bresult(x, iters, rel, rel <= tol * 10, div)
 
 
@@ -955,13 +980,24 @@ def make_native_solve(bops, kappa: float, *, method: str = "cgnr",
         dhat = bops.apply_dhat_native
         dhat_dag = bops.apply_dhat_dagger_native
 
+    # Each Dhat is a span; a Dhat^dag's is also timed on the device.  It
+    # runs while the device still works on the Dhat before it, so its
+    # events bracket device work alone; a Dhat that follows a host read
+    # would count the device's wait for its launch.
+    def op(v):
+        with spans.span("dhat"):
+            return dhat(v, kappa)
+
+    def op_dag(v):
+        with spans.span("dhat", device=v):
+            return dhat_dag(v, kappa)
+
     def solve_native(v_e, v_o, deflation=None):
         # RHS of Eq. (4): eta_e + kappa * H_eo eta_o  (D_eo = -kappa H_eo).
         rhs = v_e + kappa * hop_eo(v_o)
-        with group_reductions(bops.group_sum):
+        with group_reductions(bops.group_sum), spans.span("krylov"):
             res = _run_krylov(
-                method, lambda v: dhat(v, kappa),
-                lambda v: dhat_dag(v, kappa), rhs, batched=batched,
+                method, op, op_dag, rhs, batched=batched,
                 deflation=deflation, tol=tol, max_iters=max_iters,
                 recompute_every=recompute_every, guard=guard,
                 stagnation_window=stagnation_window,

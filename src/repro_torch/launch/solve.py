@@ -87,7 +87,9 @@ def main(argv=None):
     and full-lattice residual (the most of any column) and their
     per-column lists (``col_iterations``,
     ``col_residuals``), the full-lattice solutions, kernel launches of
-    this run (``b1_modes``: B1's by mode), session stats, and for a
+    this run (``b1_modes``: B1's by mode), the solvers' Krylov iterations
+    and host reads of this run (``solver_counts``, from
+    ``counters.SOLVER``), session stats, and for a
     refined solve ``results`` (each solve's
     :class:`repro_torch.core.solver.RefinedResult`)."""
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.solve")
@@ -247,6 +249,7 @@ def _run(args, ap, device, bname, opts, group):
         else None
     launches0 = dict(counters.LAUNCHES)
     modes0 = dict(counters.B1_MODE_LAUNCHES)
+    solver0 = dict(counters.SOLVER)
     eta_gen = torch.Generator().manual_seed(args.seed + 100)
     iterations, residuals, solutions, results = [], [], [], []
     col_iterations, col_residuals = [], []
@@ -328,13 +331,17 @@ def _run(args, ap, device, bname, opts, group):
         f"{k}={v}" for k, v in launches.items())
         + f" (hop_block_planar periodic={b1_modes['periodic']} "
         f"halo={b1_modes['halo']})")
+    solver_counts = {k: v - solver0[k] for k, v in counters.SOLVER.items()}
+    say(f"host reads: {solver_counts['host_reads']} over "
+        f"{solver_counts['iterations']} iterations")
     say("done", flush=True)
     return {"backend": session.matrix.backend.name,
             "domain": session.matrix.domain,
             "nrhs": nrhs, "iterations": iterations, "residuals": residuals,
             "col_iterations": col_iterations,
             "col_residuals": col_residuals, "solutions": solutions,
-            "launches": launches, "b1_modes": b1_modes, "stats": st,
+            "launches": launches, "b1_modes": b1_modes,
+            "solver_counts": solver_counts, "stats": st,
             **({"results": results} if inner_dtype else {})}
 
 
