@@ -37,7 +37,12 @@ Run from a checkout: it builds the CUDA kernels from
    max|plain|, one bf16 rounding step: B1 periodic on every check shape
    and halo mode on the halo shapes, B2 and B3 at FUSED_NRHS; the
    two-launch Dhat and B3 must equal B2 bit for bit;
-4c. runs the invariant gate's runtime checks on the card (``gate``,
+4c. holds the fused CG update (``cg_update``) to the plain op sequence
+   on the card, bit for bit, at the propagator cell's block (16x32x32x64
+   x 12, f32) and at 16^4 x 12 in f64, its reductions to a float64 sum,
+   times each of its launches beside its bound and the inline ATen ops it
+   replaced, and a 12-column cgnr at 16^4 with and without it;
+4d. runs the invariant gate's runtime checks on the card (``gate``,
    ``repro_torch.analysis``: TJ1, TJ2, TJ4 and TJ6 at 4x4x4x8, f32 and
    bf16, through B1, B2 and B3): no dtype change or codec call inside a
    native solve of any backend and its host reads per iteration within
@@ -824,6 +829,176 @@ def phase_bf16(device):
           + f" (limit 2^-7 = {BF16_RTOL:.3e}); two-launch Dhat and B3 "
           f"equal to B2 bit for bit in {pairs} cases", flush=True)
     return worst
+
+
+# The fused CG update (kernels/cg_update.py): the block the benchmark's
+# propagator cell solves, (T, Z, Y, X) (16, 32, 32, 64) x 12 columns in
+# f32, and a 16^4 x 12 block in f64.
+CG_UPDATE_POINTS = (((16, 32, 32, 64), 12, "f32"),
+                    ((16, 16, 16, 16), 12, "f64"))
+HBM_BYTES_PER_S = 3.35e12
+
+
+def phase_cg_update(device):
+    """The fused CG update on the card: its ptxas lines; at
+    ``CG_UPDATE_POINTS`` the update bit-equal to the plain op sequence
+    (run on the card) given the same scalars, with frozen columns; the
+    reductions within 1e-6 relative of a float64 sum and the same bits in
+    three runs; then each launch's device time beside its bound (its
+    passes over one block vector at 3.35 TB/s) and beside the inline ATen
+    ops it replaced; then a 12-column cgnr at 16^4 on ``cuda_hop`` with
+    the kernel and with its dispatch patched off, in iterations within
+    one and residuals within 10 %.  Returns the f32 point's times."""
+    import torch
+
+    from repro_torch.analysis import trace_checks
+    from repro_torch.core import evenodd, solver, su3
+    from repro_torch.kernels import build, cg_update, counters
+
+    log = build.build_all()["cg_update"]["log"]
+    current, spill = None, "0"
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?(cg_[a-z]+_kernel)"
+                      r"I([fd])(?:Li(\d+)E)?(?:Lb([01])E)?", line)
+        if m:
+            real = "float" if m.group(2) == "f" else "double"
+            current = (f"{m.group(1)}<{real}"
+                       + (f", W={m.group(3)}" if m.group(3) else "")
+                       + (f", rr1={m.group(4)}" if m.group(4) else "") + ">")
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and current:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current:
+            print(f"  ptxas {current}: {m.group(1)} registers, {spill} B "
+                  "spill stores", flush=True)
+            check(spill == "0", f"cg_update kernel spills: {current}")
+            current, spill = None, "0"
+
+    def plain(x, r, p, ap, alpha, beta, accept):
+        bb = cg_update._bb
+        x1 = bb(alpha, p) * p + x
+        r1 = bb(-alpha, ap) * ap + r
+        p1 = bb(beta, p) * p + r1
+        if accept is not None:
+            x1 = torch.where(bb(accept, x1), x1, x)
+            r1 = torch.where(bb(accept, r1), r1, r)
+            p1 = torch.where(bb(accept, p1), p1, p)
+        return x1, r1, p1
+
+    out = {}
+    for (T, Z, Y, X), n, dt in CG_UPDATE_POINTS:
+        dtype = getattr(torch, REAL[dt])
+        gen = torch.Generator(device=device).manual_seed(29)
+        shape = (n, T, Z, 24, Y, X // 2)
+        x, r, p, ap = (torch.randn(shape, generator=gen, dtype=dtype,
+                                   device=device) for _ in range(4))
+        alpha = torch.rand(n, generator=gen, dtype=dtype, device=device)
+        beta = torch.rand(n, generator=gen, dtype=dtype, device=device)
+        accept = torch.ones(n, dtype=torch.bool, device=device)
+        accept[1::5] = False
+        label = f"{T}x{Z}x{Y}x{X} x {n} {dt}"
+        for acc in (accept, None):
+            want = plain(x, r, p, ap, alpha, beta, acc)
+            got = [t.clone() for t in (x, r, p)]
+            cg_update.update_(*got, ap, alpha, beta, acc)
+            torch.cuda.synchronize()
+            check(all(torch.equal(g.view(torch.int32 if dt == "f32"
+                                         else torch.int64),
+                                  w.view(torch.int32 if dt == "f32"
+                                         else torch.int64))
+                      for g, w in zip(got, want)),
+                  f"cg_update: update_ at {label} (accept "
+                  f"{'given' if acc is not None else 'None'}) differs from "
+                  "the plain op sequence")
+            del want, got
+        r1 = cg_update._bb(-alpha, ap) * ap + r
+        refs = {"pap": (p.double() * ap.double()).reshape(n, -1).sum(1),
+                "rr1": (r1.double() ** 2).reshape(n, -1).sum(1)}
+        del r1
+        calls = {"pap": lambda: cg_update.pap(p, ap),
+                 "rr1": lambda: cg_update.rr1(r, ap, alpha)}
+        for name, call in calls.items():
+            first = call()
+            rel = ((first.double() - refs[name]).abs()
+                   / refs[name].abs()).max().item()
+            same = all(torch.equal(call(), first) for _ in range(3))
+            print(f"cg_update {name} at {label}: max rel err vs f64 "
+                  f"{rel:.2e}, repeats bit for bit: {same}", flush=True)
+            check(rel <= 1e-6 and same,
+                  f"cg_update: {name} at {label} off the f64 sum or not "
+                  "repeatable")
+        if dt != "f32":
+            continue
+        vec_bytes = x.numel() * x.element_size()
+        # Timed in place on every column: p += r each call, x and r kept.
+        zero, one = torch.zeros_like(alpha), torch.ones_like(beta)
+        every = torch.ones_like(accept)
+        times = {
+            "pap": (device_ms(calls["pap"], 20), 2),
+            "rr1": (device_ms(calls["rr1"], 20), 2),
+            "update": (device_ms(lambda: cg_update.update_(
+                x, r, p, ap, zero, one, every), 20), 7),
+        }
+        inline = {
+            "pap": device_ms(lambda: solver._bvdot(p, ap).real, 10),
+            "rr1": device_ms(lambda: solver._bnorm2(
+                solver._baxpy(-alpha, ap, r)), 10),
+            "update": device_ms(lambda: plain(x, r, p, ap, alpha, beta,
+                                              accept), 10),
+        }
+        card = card_name()
+        # The inline update's row counts the r1 axpy that its rr1 row
+        # counts too: of the 37 passes the three rows time, the parent
+        # iteration ran 32.
+        for name, (ms, passes) in times.items():
+            bound = passes * vec_bytes / HBM_BYTES_PER_S * 1e3
+            print(f"cg_update {name} at {label}: {ms * 1e3:.1f} us, bound "
+                  f"{bound * 1e3:.1f} us ({passes} passes of "
+                  f"{vec_bytes / 1e6:.0f} MB at 3.35 TB/s), "
+                  f"{100 * bound / ms:.1f} % of bound; inline ATen ops "
+                  f"{inline[name] * 1e3:.1f} us [{card}]", flush=True)
+            out[name] = {"ms": ms, "bound_ms": bound,
+                         "inline_ms": inline[name]}
+        del x, r, p, ap
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator().manual_seed(7)
+    U_e, U_o = evenodd.pack_gauge(su3.weak_gauge(gen, (16, 16, 16, 16), 0.2,
+                                                 device=device))
+    e = torch.complex(torch.randn((12, 16, 16, 16, 8, 4, 3), generator=gen),
+                      torch.randn((12, 16, 16, 16, 8, 4, 3), generator=gen))
+    bops = trace_checks._bind("cuda_hop", U_e, U_o)
+    rhs = bops.to_domain_batched(e.to(device))
+
+    def solve():
+        before = dict(counters.SOLVER)
+        res = solver.cgnr_batched(
+            lambda v: bops.apply_dhat_native_batched(v, 0.124),
+            lambda v: bops.apply_dhat_dagger_native_batched(v, 0.124), rhs,
+            tol=1e-6, max_iters=500)
+        return res, counters.SOLVER["fused_updates"] - before["fused_updates"]
+
+    res, fused = solve()
+    real = solver._fuses
+    solver._fuses = lambda b, project: False
+    try:
+        off, fused_off = solve()
+    finally:
+        solver._fuses = real
+    print(f"cg_update cgnr 16^4 x 12: iterations {res.iterations.tolist()} "
+          f"(fused updates {fused}) vs {off.iterations.tolist()} without "
+          f"(fused updates {fused_off}); worst residual "
+          f"{res.residual.max().item():.3e} vs "
+          f"{off.residual.max().item():.3e}", flush=True)
+    check(fused > 0 and fused_off == 0
+          and bool(res.converged.all()) and bool(off.converged.all())
+          and (res.iterations - off.iterations).abs().max().item() <= 1
+          and torch.allclose(res.residual, off.residual, rtol=0.1, atol=0),
+          "cg_update: the 12-column cgnr differs with and without the "
+          "kernel")
+    return out
 
 
 def phase_gate(device):
@@ -4165,6 +4340,7 @@ def main(argv=None):
              "dhat_planar_fused": timed("b2", phase_b2, device),
              "dhat_planar_fused_stream": timed("b3", phase_b3, device)}
     worst_bf16 = timed("bf16", phase_bf16, device)
+    timed("cg_update", phase_cg_update, device)
     gate = timed("gate", phase_gate, device)
     runs = timed("slice", phase_slice)
     runs2 = timed("slice2", phase_slice2)

@@ -19,7 +19,10 @@ and while a profiler records each host read is a ``host_read`` span and
 each ``Dhat`` of a native solve a ``dhat`` span (:mod:`repro_torch.
 spans`).  A column that converges, breaks down or goes non-finite
 freezes bit-exactly (a ``where``-select keeps its old state) while the
-others iterate on.
+others iterate on.  On a CUDA device, batched CG runs the vector algebra
+of each iteration (its two reductions, three axpys and the freeze) as the
+three launches of the fused CG update (:mod:`repro_torch.kernels.
+cg_update`), the per-column scalar logic between them staying here.
 
 The reference's divergence guards (``guard=True``, the default) are
 kept: a non-finite residual stops the loop and freezes the iterate at
@@ -60,7 +63,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from .. import spans
-from ..kernels import counters
+from ..kernels import cg_update, counters
 
 __all__ = ["SolveResult", "RefinedResult", "cg", "cgnr", "bicgstab",
            "cg_batched", "cgnr_batched", "bicgstab_batched",
@@ -262,6 +265,16 @@ def _nz(d: torch.Tensor, tiny: float) -> torch.Tensor:
     """A denominator with dead lanes (``|d| <= tiny``) replaced by 1, so
     that every division stays finite; their quotients are masked off."""
     return torch.where(d.abs() > tiny, d, torch.ones_like(d))
+
+
+def _fuses(b: torch.Tensor, project: Optional[Callable]) -> bool:
+    """Whether :func:`cg_batched` runs its iterations' vector algebra
+    through the fused CG update (:mod:`repro_torch.kernels.cg_update`):
+    on a CUDA device, for real float32 or float64 vectors, without a
+    deflation projector.  A true-residual recompute iteration runs the
+    inline ops all the same."""
+    return (project is None and b.device.type == "cuda"
+            and b.dtype in cg_update.DTYPES)
 
 
 def _bresult(x, iters, rel, conv, div) -> SolveResult:
@@ -518,8 +531,21 @@ def cg_batched(op: Callable, b: torch.Tensor, x0=None, *,
     column.  A non-finite source column never iterates and ends as
     ``diverged``.  ``project`` is the batched deflation projector,
     applied as in :func:`cg`.
+
+    Where :func:`_fuses` holds (a CUDA device, real f32 or f64 vectors,
+    no ``project``), each iteration but a true-residual recompute runs
+    ``<p, ap>``, ``|r1|^2`` and the update with its freeze through the
+    fused CG update, which writes ``x``, ``r`` and ``p`` in place: the
+    same arithmetic, its reductions summed in another order.
     """
     proj = project if project is not None else torch.clone
+    fused = _fuses(b, project)
+    if fused:
+        # The fused update writes x, r and p in place: vectors the solver
+        # owns, never the caller's x0.
+        b = b.contiguous()
+        if x0 is not None:
+            x0 = x0.clone(memory_format=torch.contiguous_format)
     x = torch.zeros_like(b) if x0 is None else x0
     r = b.clone() if x0 is None else b - op(x)
     p = proj(r)
@@ -537,30 +563,42 @@ def cg_batched(op: Callable, b: torch.Tensor, x0=None, *,
     (go,) = _any(live)
     while go and k < max_iters:
         counters.count_iteration()
+        recompute = bool(recompute_every) and (k + 1) % recompute_every == 0
+        fuse = fused and not recompute
         ap = op(p)
-        pap = _bvdot(p, ap).real
+        pap = _global(cg_update.pap(p, ap)) if fuse else _bvdot(p, ap).real
         # Breakdown guard: a (numerically) nullspace direction freezes
         # its column instead of scaling by a garbage alpha.
         ok = active & (pap > tiny)
         af = ok.to(rr.dtype)
         alpha = af * rr / _nz(pap, tiny)
-        x1 = _baxpy(alpha, p, x)
-        r1 = _baxpy(-alpha, ap, r)
-        recompute = bool(recompute_every) and (k + 1) % recompute_every == 0
-        if recompute:
-            r1 = b - op(x1)
-        rr1 = _bnorm2(r1)
+        if fuse:
+            rr1 = _global(cg_update.rr1(r, ap, alpha))
+        else:
+            x1 = _baxpy(alpha, p, x)
+            r1 = _baxpy(-alpha, ap, r)
+            if recompute:
+                r1 = b - op(x1)
+            rr1 = _bnorm2(r1)
         beta = af * rr1 / _nz(rr, tiny)
-        p1 = _baxpy(beta, p, r1 if project is None else project(r1))
-        restart = None
         if guard:
             # Only active columns whose new residual stayed finite
             # accept the update.
             finite = torch.isfinite(rr1)
             accept = active & finite
-            x1 = _bwhere(accept, x1, x)
-            r1 = _bwhere(accept, r1, r)
-            p1 = _bwhere(accept, p1, p)
+        if fuse:
+            # The update and the guard's freeze, in place.
+            cg_update.update_(x, r, p, ap, alpha, beta,
+                              accept if guard else None)
+            x1, r1, p1 = x, r, p
+        else:
+            p1 = _baxpy(beta, p, r1 if project is None else project(r1))
+            if guard:
+                x1 = _bwhere(accept, x1, x)
+                r1 = _bwhere(accept, r1, r)
+                p1 = _bwhere(accept, p1, p)
+        restart = None
+        if guard:
             rr1 = torch.where(accept, rr1, rr)
             div = div | (active & ~finite)
             improved = rr1 < best

@@ -35,6 +35,7 @@ KERNEL_SOURCES = {
     "wilson_hop": "wilson_hop.cu",
     "wilson_dhat_fused": "wilson_dhat_fused.cu",
     "wilson_dhat_stream": "wilson_dhat_stream.cu",
+    "cg_update": "cg_update.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -43,6 +44,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+_L = ctypes.c_int64
 #: entry point -> ctypes argtypes of every kernel library's C interface
 ARGTYPES = {
     # u_out, u_in, src, psi0, out, T, Z, Y, Xh, nrhs, gc, itemsize, halo,
@@ -63,6 +65,14 @@ ARGTYPES = {
     # gc, itemsize, D, threads, smem, device, int* blocks per SM
     "wilson_dhat_fused_occupancy": [_I] * 6 + [ctypes.POINTER(_I)],
     "wilson_dhat_stream_occupancy": [_I] * 6 + [ctypes.POINTER(_I)],
+    # a, b, alpha, partials, out, nrhs, len, vec, itemsize, mode, device,
+    # stream
+    "cg_update_reduce_launch": [_P] * 5 + [_I, _L, _I, _I, _I, _I, _P],
+    # x, r, p, ap, alpha, beta, accept, nrhs, len, vec, itemsize, device,
+    # stream
+    "cg_update_apply_launch": [_P] * 7 + [_I, _L, _I, _I, _I, _P],
+    # accesses a row -> partials a row
+    "cg_update_chunks": [_L],
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

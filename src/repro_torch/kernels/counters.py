@@ -28,15 +28,19 @@ launch.
   ``blockcg_batched``), ``host_reads`` each read of a tensor's values by
   the host at the solvers' read sites (a Krylov scalar's ``.item()``,
   the loop flags' ``.tolist()``, a result's ``.cpu()`` of a tensor not
-  already on the host), on any device.  :func:`reset_solver_counts`
-  zeroes it; :func:`repro_torch.spans.window` reports its deltas over a
-  traced window.
+  already on the host), ``fused_updates`` each iteration whose update
+  went through the fused CG update (``kernels/cg_update.py``, counted at
+  the top of ``update_`` as :data:`CALLS` counts a wrapper's calls, kept
+  out of ``CALLS`` and ``LAUNCHES``), on any device.
+  :func:`reset_solver_counts` zeroes it; :func:`repro_torch.spans.window`
+  reports its deltas over a traced window.
 """
 from __future__ import annotations
 
 __all__ = ["CALLS", "LAUNCHES", "B1_MODE_CALLS", "B1_MODE_LAUNCHES",
            "HALO", "SOLVER", "count_call", "count_launch", "count_halo",
-           "count_iteration", "count_host_read", "reset_launch_counts",
+           "count_iteration", "count_host_read", "count_fused_update",
+           "reset_launch_counts",
            "reset_halo_counts", "reset_solver_counts"]
 
 #: wrapper calls since the last :func:`reset_launch_counts`, any device
@@ -50,8 +54,9 @@ B1_MODE_CALLS = {"periodic": 0, "halo": 0}
 B1_MODE_LAUNCHES = dict(B1_MODE_CALLS)
 #: halo bytes and messages sent since the last :func:`reset_halo_counts`
 HALO = {"bytes": 0, "messages": 0}
-#: Krylov passes and host reads since the last :func:`reset_solver_counts`
-SOLVER = {"iterations": 0, "host_reads": 0}
+#: Krylov passes, host reads and fused updates since the last
+#: :func:`reset_solver_counts`
+SOLVER = {"iterations": 0, "host_reads": 0, "fused_updates": 0}
 
 
 def _count(totals, modes, name: str, halo: bool) -> None:
@@ -98,6 +103,12 @@ def count_host_read() -> None:
     SOLVER["host_reads"] += 1
 
 
+def count_fused_update() -> None:
+    """One iteration's update through the fused CG update."""
+    SOLVER["fused_updates"] += 1
+
+
 def reset_solver_counts() -> None:
     """Set the solver counts to 0."""
-    SOLVER["iterations"] = SOLVER["host_reads"] = 0
+    for k in SOLVER:
+        SOLVER[k] = 0

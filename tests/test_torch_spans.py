@@ -95,7 +95,9 @@ def test_window_counts_the_solves_work(batched):
     assert rows["gamma5"]["count"] == 2 * (k + 2)
     reads = k + 2 if batched else 2 * k + 4 * 2
     assert rows["host_read"]["count"] == reads
-    assert w["counters"] == {"iterations": k, "host_reads": reads}
+    # the CPU keeps batched CG's inline algebra: no fused update
+    assert w["counters"] == {"iterations": k, "host_reads": reads,
+                             "fused_updates": 0}
     # on the CPU no span timed a device
     assert all(r["device_s"] is None for r in rows.values())
     # self host time: the solve's own, beside its Krylov loop
@@ -157,7 +159,8 @@ def test_host_reads_per_iteration_are_the_gates(method, batched):
 
 def test_counters_reset_and_count_every_krylov_loop():
     counters.reset_solver_counts()
-    assert counters.SOLVER == {"iterations": 0, "host_reads": 0}
+    assert counters.SOLVER == {"iterations": 0, "host_reads": 0,
+                               "fused_updates": 0}
     U_e, U_o, e, _ = trace_checks._tiny("cpu", nrhs=2)
     bops = trace_checks._bind("cuda_hop", U_e, U_o)
     b = bops.to_domain_batched(e)
